@@ -1,0 +1,366 @@
+"""The port's raster on CPU tensors (the plain version of the CUDA kernel)
+against the sequential spec ``raster_ref.render_colors_ref`` and the JAX
+Mosaic kernel in interpret mode — bit for bit, on the quirk meshes of
+tests/test_raster.py and ops/raster_selftest.py.
+
+No float tolerance anywhere in this file: winner ids, masks and colors are
+integers and must be equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from voicepuppet_tpu.face3d import bfm as jbfm
+from voicepuppet_tpu.face3d import morph as jmorph
+from voicepuppet_tpu.face3d import raster_ref as jref
+from voicepuppet_tpu.ops import raster_pallas as jpallas
+from voicepuppet_tpu.ops import raster_selftest as jself
+
+from voicepuppet_torch import ops as tops
+from voicepuppet_torch.face3d import raster as traster
+from voicepuppet_torch.face3d import raster_ref as tref
+from voicepuppet_torch.ops import raster_selftest as tself
+
+torch.set_num_threads(1)
+
+H = W = 96
+
+
+def _project_synthetic(seed=0, n=14, scale=40.0):
+    """tests/test_raster.py's small sphere-patch mesh in screen space."""
+    model = jbfm.synthetic_bfm(num_theta=n, num_phi=n, seed=seed)
+    fm = jmorph.device_bfm(model)
+    coeff = jbfm.demo_coeff(model, batch=1, seed=seed + 1)
+    rec = jmorph.reconstruct(coeff, fm, image_size=float(H))
+    proj = np.asarray(rec.face_projection[0])
+    proj = (proj - proj.mean(0)) * (scale / np.abs(
+        proj - proj.mean(0)).max()) + np.array([W / 2, H / 2])
+    z = np.asarray(rec.z_buffer[0])
+    verts = np.concatenate([proj, z], axis=1).astype(np.float32)
+    colors = np.clip(np.asarray(rec.face_color[0]), 0, 255).astype(
+        np.int32).astype(np.float32)
+    return verts, np.asarray(fm.tri), colors
+
+
+_MESH = []
+
+
+def mesh():
+    if not _MESH:
+        _MESH.append(_project_synthetic())
+    verts, tris, colors = _MESH[0]
+    return verts.copy(), tris, colors
+
+
+def _port(verts, tris, colors, h, w, entry="auto"):
+    v = torch.from_numpy(np.ascontiguousarray(verts[None]))
+    c = torch.from_numpy(np.ascontiguousarray(colors[None]))
+    t = torch.from_numpy(np.array(tris, dtype=np.int32))
+    if entry == "auto":
+        img, mask = tops.render_colors_auto(v, c, t, h=h, w=w)
+    elif entry == "kernel":
+        img, mask = tops.render_colors_kernel(v, c, t, h=h, w=w)
+    else:
+        img, mask = tops.render_colors_xband(v, c, t, h=h, w=w, guard=False)
+    return img[0].numpy(), mask[0].numpy()
+
+
+def _equal(got, want):
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+# ---- the cases: (verts, tris, colors, h, w) --------------------------------
+
+def case_mesh():
+    v, t, c = mesh()
+    return v, t, c, H, W
+
+
+def case_degenerate_truncation_tie():
+    v = np.array([
+        [10.0, 10.0, 1.0], [14.0, 10.0, 1.0], [12.0, 10.0, 1.0],  # degen
+        [2.0, 14.0, 1.0], [20.0, 14.0, 1.0], [2.0, 30.0, 1.0],    # A
+        [2.0, 14.0, 1.0], [20.0, 14.0, 1.0], [2.0, 30.0, 1.0],    # B = tie
+    ], np.float32)
+    t = np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)
+    c = np.array([[90.0]] * 3 + [[9.0], [9.0], [10.0]] + [[200.0]] * 3,
+                 np.float32)
+    return v, t, c, 32, 32
+
+
+def case_occlusion_far_first():
+    v = np.array([[2.0, 2.0, 5.0], [28.0, 2.0, 5.0], [2.0, 28.0, 5.0],
+                  [2.0, 2.0, 1.0], [28.0, 2.0, 1.0], [2.0, 28.0, 1.0]],
+                 np.float32)
+    c = np.array([[200.0]] * 3 + [[50.0]] * 3, np.float32)
+    return v, np.array([[3, 4, 5], [0, 1, 2]], np.int32), c, 32, 32
+
+
+def case_tall_triangle():
+    v, t, c = mesh()
+    t0 = t[0]
+    v[t0[0], :2] = [W * 0.5, 2.3]
+    v[t0[1], :2] = [W * 0.25, H - 3.3]
+    v[t0[2], :2] = [W * 0.75, H - 5.3]
+    v[t0, 2] = 50.0
+    return v, t, c, H, W
+
+
+def case_xband_wide_mesh():
+    v, t, c = mesh()
+    v[:, 0] = (v[:, 0] - v[:, 0].mean()) * 2.2 + 224 / 2
+    return v, t, c, H, 224
+
+
+def case_xband_wide_triangle():
+    v, t, c = mesh()
+    v[:, 0] += (224 - W) / 2
+    t0 = t[0]
+    v[t0[0], :2] = [60.3, H * 0.4]
+    v[t0[1], :2] = [180.3, H * 0.3]
+    v[t0[2], :2] = [120.3, H * 0.6]
+    v[t0, 2] = 50.0
+    return v, t, c, H, 224
+
+
+def _seam(za, zb):
+    tri_a = [[90.0, 10.0], [120.0, 10.0], [105.0, 40.0]]
+    tri_b = [[100.0, 5.0], [126.0, 20.0], [96.5, 35.0]]
+    v = np.array([p + [za] for p in tri_a] + [p + [zb] for p in tri_b],
+                 np.float32)
+    c = np.array([[200.0]] * 3 + [[50.0]] * 3, np.float32)
+    return v, np.array([[0, 1, 2], [3, 4, 5]], np.int32), c, 48, 224
+
+
+def case_edge_through_pixel_centers():
+    eps = np.float32(2.0 ** -17)
+    v = np.array([[104.0, 40.0 - eps, 5.0], [120.0, 52.0 - eps, 5.0],
+                  [118.0, 42.0, 5.0]], np.float32)
+    return (v, np.array([[0, 1, 2]], np.int32),
+            np.full((3, 3), 90.0, np.float32), 224, 224)
+
+
+def case_narrow_canvas():
+    v = np.array([[2.0, 2.0, 1.0], [28.0, 2.0, 1.0], [2.0, 28.0, 1.0]],
+                 np.float32)
+    return (v, np.array([[0, 1, 2]], np.int32),
+            np.full((3, 3), 90.0, np.float32), 32, 96)
+
+
+def case_soup():
+    v, t, c = jself._soup(seed=0)
+    return v, t, c, H, W
+
+
+def case_soup_xband():
+    v, t, c = jself._soup(seed=2, w=224)
+    return v, t, c, H, 224
+
+
+SPEC_CASES = {
+    "mesh": case_mesh,
+    "degenerate_truncation_tie": case_degenerate_truncation_tie,
+    "occlusion_far_first": case_occlusion_far_first,
+    "tall_triangle": case_tall_triangle,
+    "xband_wide_mesh": case_xband_wide_mesh,
+    "xband_wide_triangle": case_xband_wide_triangle,
+    "seam_near_a": lambda: _seam(5.0, 1.0),
+    "seam_near_b": lambda: _seam(1.0, 5.0),
+    "seam_tie": lambda: _seam(3.0, 3.0),
+    "edge_through_pixel_centers": case_edge_through_pixel_centers,
+    "narrow_canvas": case_narrow_canvas,
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_CASES))
+def test_port_raster_matches_sequential_spec(name):
+    v, t, c, h, w = SPEC_CASES[name]()
+    want = jref.render_colors_ref(v, t, c, h, w)
+    assert want[1].sum() > 0
+    _equal(_port(v, t, c, h, w), want)
+    # the port's own copy of the spec is the same spec
+    _equal(tref.render_colors_ref(v, t, c, h, w), want)
+
+
+@pytest.mark.parametrize("name", ["mesh", "degenerate_truncation_tie",
+                                  "xband_wide_mesh", "xband_wide_triangle",
+                                  "seam_near_a", "seam_tie",
+                                  "edge_through_pixel_centers",
+                                  "narrow_canvas"])
+def test_port_raster_matches_jax_xband_interpret(name):
+    v, t, c, h, w = SPEC_CASES[name]()
+    win = 48 if name.startswith("seam") else 16
+    img, mask = jpallas.render_colors_xband_pallas(
+        v[None], c[None], t, h=h, w=w, win=win, interpret=True)
+    want = (np.asarray(img[0]), np.asarray(mask[0]))
+    for entry in ("auto", "kernel", "xband"):
+        _equal(_port(v, t, c, h, w, entry), want)
+
+
+@pytest.mark.parametrize("case", [case_soup, case_soup_xband],
+                         ids=["soup", "soup_xband"])
+def test_port_raster_on_random_soups(case):
+    """Random triangle soups (ops/raster_selftest.py) carry pixel centers
+    within an ulp of an edge.  There raster_ref (float64 barycentrics) and
+    the JAX interpret kernel (XLA's CPU float32) may each round the inside
+    test differently from the plain float32 order the port and the CUDA
+    kernel share, so the selftest's own contract applies: equal except at
+    a bounded handful of pixels proven borderline by a float64
+    recomputation."""
+    v, t, c, h, w = case()
+    got = _port(v, t, c, h, w)
+    want = jref.render_colors_ref(v, t, c, h, w)
+    jself._expect_match(got[0], got[1], want[0], want[1], v, t, h, w,
+                        "port vs spec")
+    img, mask = jpallas.render_colors_xband_pallas(
+        v[None], c[None], t, h=h, w=w, interpret=True)
+    jself._expect_match(got[0], got[1], np.asarray(img[0]),
+                        np.asarray(mask[0]), v, t, h, w, "port vs jax")
+
+
+def test_low_bit_y_mesh_against_spec_and_jax():
+    """The round-4 regression mesh: exact depth ties, y coordinates with
+    2^-17 low bits, quarter-pixel x — winners hang on inside tests whose
+    pixel centers sit on or within ~1e-5 of an edge.  There the three
+    float orders part: raster_ref's float64 barycentrics, XLA's CPU
+    float32, which contracts ``a*b + c*d`` into ``fma(a, b, c*d)`` (the
+    JAX interpret kernels), and the unfused float32 order the port and the
+    CUDA kernel share.  Measured: 6 of 50,176 pixels differ from the spec
+    and 6 from the JAX kernels, which themselves differ from the spec at
+    4, so no float order equals both.  So: the selftest's contract against the
+    spec (a bounded handful of pixels, f64-verified within 3e-5 of an
+    edge), and against the JAX kernels every differing pixel must lie
+    within 1e-4 of an edge — the JAX pair itself must agree exactly."""
+    v, t, c = jself._low_bit_y_mesh()
+    p_img, p_mask = jpallas.render_colors_pallas(
+        v[None], c[None], t, h=224, w=224, interpret=True)
+    x_img, x_mask = jpallas.render_colors_xband_pallas(
+        v[None], c[None], t, h=224, w=224, guard=False, interpret=True)
+    np.testing.assert_array_equal(np.asarray(x_mask), np.asarray(p_mask))
+    got = _port(v, t, c, 224, 224)
+    want = jref.render_colors_ref(v, t, c, 224, 224)
+    jself._expect_match(got[0], got[1], want[0], want[1], v, t, 224, 224,
+                        "port vs spec")
+    bad = np.argwhere((got[1] != np.asarray(p_mask[0]))
+                      | (got[0] != np.asarray(p_img[0])).any(-1))
+    assert 0 < len(got[1].nonzero()[0]) and len(bad) <= jself.MAX_BORDERLINE
+    near = jself._borderline_pixels(v, t, 224, 224, eps=1e-4)
+    assert all((int(y), int(x)) in near for y, x in bad), bad
+
+
+def test_winner_and_depth_match_jax_winner_kernel():
+    """rasterize_winner: ids in [0, F] (F = uncovered) and the winner's
+    flat depth, equal to the JAX winner kernel's buffers."""
+    v, t, _ = mesh()
+    v2 = np.stack([v, v + np.array([5.0, 0.0, 0.0], np.float32)])
+    jw, jd = jpallas.rasterize_winner_pallas(v2, t, h=H, w=W,
+                                             interpret=True)
+    tw, td = tops.rasterize_winner(torch.from_numpy(v2),
+                                   torch.from_numpy(t.astype(np.int32)),
+                                   h=H, w=W)
+    assert tw.dtype == torch.int32 and td.dtype == torch.float32
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert (tw.numpy() == t.shape[0]).any() and (tw.numpy() < t.shape[0]).any()
+
+
+def test_batched_render_is_per_frame():
+    v, t, c = mesh()
+    v2 = torch.from_numpy(np.stack([v, v + np.array([5.0, 0.0, 0.0],
+                                                    np.float32)]))
+    c2 = torch.from_numpy(np.stack([c, c]))
+    img, mask = traster.render_colors(v2, c2, torch.from_numpy(t), H, W)
+    want = jref.render_colors_ref(v, t, c, H, W)
+    np.testing.assert_array_equal(img[0].numpy(), want[0])
+    np.testing.assert_array_equal(mask[0].numpy(), want[1])
+    assert not torch.equal(mask[0], mask[1])
+
+
+def test_depth_filter_and_empty_inputs():
+    """Triangles at or below the -99999 init depth never draw (strict >),
+    off-canvas triangles are empty, and a mesh that draws nothing yields
+    winner == F everywhere."""
+    v = np.array([[2.0, 2.0, -99999.0], [28.0, 2.0, -99999.0],
+                  [2.0, 28.0, -99999.0],
+                  [-50.0, -50.0, 1.0], [-40.0, -50.0, 1.0],
+                  [-50.0, -40.0, 1.0]], np.float32)
+    t = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    w_, d_ = traster.rasterize_winner(torch.from_numpy(v[None]),
+                                      torch.from_numpy(t), 32, 32)
+    assert (w_ == 2).all() and (d_ == -99999.0).all()
+
+
+def test_selftest_generators_copy_the_jax_ones():
+    """The on-card gate's own numpy copies of the soup and low-bit-y
+    generators produce the JAX selftest's arrays exactly."""
+    for seed, w in ((0, 96), (1, 96), (2, 224)):
+        for got, want in zip(tself.soup(seed=seed, w=w),
+                             jself._soup(seed=seed, w=w)):
+            np.testing.assert_array_equal(got, want)
+    for got, want in zip(tself.low_bit_y_mesh(), jself._low_bit_y_mesh()):
+        np.testing.assert_array_equal(got, want)
+
+
+# cases whose corners sit on a quarter-pixel grid or carry 2^-17 low bits:
+# the spec's float64 barycentrics may part from float32 at pixels within
+# ~1e-5 of an edge (test_port_raster_on_random_soups)
+_BORDERLINE_CASES = ("soup", "tall_guard", "xband_soup",
+                     "xband_wide_triangle", "huge_triangle", "low_bit_y")
+
+
+@pytest.mark.parametrize("name", sorted(tself.CASES))
+def test_selftest_cases_plain_version_against_spec(name):
+    """Every quirk case of the on-card gate, rendered by the plain version
+    (the kernel's reference on the card), against the sequential spec:
+    bit for bit on the engineered cases, the selftest's f64-verified
+    borderline contract on the soups."""
+    v, t, c, h, w = tself.CASES[name]()
+    got = _port(v, t, c, h, w)
+    want = jref.render_colors_ref(v, t, c, h, w)
+    assert want[1].sum() > 0
+    status = jself._expect_match(got[0], got[1], want[0], want[1], v, t, h,
+                                 w, name)
+    if name not in _BORDERLINE_CASES:
+        assert status == "exact", status
+
+
+def test_selftest_needs_cuda_tensors():
+    v, t, c, h, w = tself.CASES["narrow_canvas"]()
+    with pytest.raises(ValueError, match="CUDA"):
+        tself.check_against_plain(torch.from_numpy(v[None]),
+                                  torch.from_numpy(c[None]),
+                                  torch.from_numpy(t), h, w, "cpu")
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper takes CUDA tensors only; the CPU path is the
+    entry points' dispatch, never a fallback inside the wrapper."""
+    v = torch.zeros((1, 3, 3))
+    t = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.RASTER(v, t, 8, 8)
+    assert tops.RASTER.launches == 0
+
+
+def test_grouped_raster_is_not_served_by_k1():
+    v = torch.zeros((1, 3, 3))
+    t = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="K4"):
+        tops.render_colors_auto(v, v, t, h=8, w=8, group=4)
+
+
+def test_device_bfm_refuses_triangle_indices_outside_the_mesh():
+    """The kernel trusts the topology: its index range is checked once,
+    where device_bfm makes it."""
+    from voicepuppet_torch.face3d import bfm as tbfm
+    from voicepuppet_torch.face3d import morph as tmorph
+    model = tbfm.synthetic_bfm(num_theta=6, num_phi=6)
+    fm = tmorph.device_bfm(model, "cpu")
+    assert int(fm.tri.min()) == 0
+    assert int(fm.tri.max()) == model.num_vertices - 1
+    model.tri = model.tri.copy()
+    model.tri[3, 1] = model.num_vertices + 1          # 1-based: one past
+    with pytest.raises(ValueError, match="outside"):
+        tmorph.device_bfm(model, "cpu")

@@ -1,0 +1,232 @@
+"""Inference building blocks with TF1-reference semantics.
+
+Port of the inference subset of ``voicepuppet_tpu/models/layers.py``.
+Submodules keep the flax scope names (``Conv_0``, ``TFBatchNorm_1``,
+``InvertedResidual_3`` ...) so a state_dict key reads like the JAX
+parameter path (``weights.py`` maps one onto the other).
+
+Tensors are NCHW inside; TF ``'SAME'`` padding is applied explicitly with
+``F.pad``, because it is asymmetric (more at the end) when the pad total
+is odd — e.g. the stride-2 stem over 80 mel bins pads (1, 2) — and torch's
+symmetric ``padding=`` cannot express that.  Max pools pad with ``-inf``,
+as ``lax.reduce_window`` does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TF/XLA 'SAME' (before, after) padding of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
+             value: float = 0.0) -> torch.Tensor:
+    ph = same_pads(x.shape[-2], kernel[0], stride[0])
+    pw = same_pads(x.shape[-1], kernel[1], stride[1])
+    if ph == (0, 0) and pw == (0, 0):
+        return x
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv(padding="SAME")``: explicit TF padding, then a valid
+    conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), groups: int = 1,
+                 bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride, padding=0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x):
+        return super().forward(pad_same(x, self.kernel_size, self.stride))
+
+
+def max_pool_same(x: torch.Tensor, window: Tuple[int, int],
+                  stride: Tuple[int, int]) -> torch.Tensor:
+    """``tf.layers.max_pooling2d(padding='same')`` (-inf padding)."""
+    x = pad_same(x, window, stride, value=-math.inf)
+    return F.max_pool2d(x, window, stride)
+
+
+def leaky_relu(x):
+    """tf.nn.leaky_relu default alpha=0.2."""
+    return F.leaky_relu(x, negative_slope=0.2)
+
+
+class TFBatchNorm(nn.Module):
+    """tf.contrib.layers.batch_norm at inference: running moments,
+    eps 1e-3, offset only (no scale).  Normalizes in float32 over the
+    channel axis 1."""
+
+    def __init__(self, ch: int, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = epsilon
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        y = ((xf - self.running_mean.view(shape))
+             * torch.rsqrt(self.running_var.view(shape) + self.epsilon)
+             + self.bias.view(shape))
+        return y.to(x.dtype)
+
+
+class ConvBN(nn.Module):
+    """conv -> BN -> activation (ref: tinynet.py:12-27)."""
+
+    def __init__(self, in_ch: int, features: int, kernel, stride,
+                 activation: Callable = F.relu):
+        super().__init__()
+        self.Conv_0 = SameConv2d(in_ch, features, kernel, stride)
+        self.TFBatchNorm_0 = TFBatchNorm(features)
+        self.activation = activation
+
+    def forward(self, x):
+        return self.activation(self.TFBatchNorm_0(self.Conv_0(x)))
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2 inverted residual (ref: tinynet.py:120-142): 1x1
+    expansion -> depthwise [7,3] -> 1x1 projection, with a 1x1+BN
+    shortcut when the channel count changes (stride is always 1 here)."""
+
+    def __init__(self, in_ch: int, features: int, expansion: int = 6,
+                 dw_kernel: Tuple[int, int] = (7, 3),
+                 activation: Callable = F.relu6):
+        super().__init__()
+        ch = in_ch * expansion
+        self.activation = activation
+        self.Conv_0 = SameConv2d(in_ch, ch, (1, 1))
+        self.TFBatchNorm_0 = TFBatchNorm(ch)
+        self.Conv_1 = SameConv2d(ch, ch, dw_kernel, groups=ch)
+        self.TFBatchNorm_1 = TFBatchNorm(ch)
+        self.Conv_2 = SameConv2d(ch, features, (1, 1))
+        self.TFBatchNorm_2 = TFBatchNorm(features)
+        if features != in_ch:
+            self.Conv_3 = SameConv2d(in_ch, features, (1, 1))
+            self.TFBatchNorm_3 = TFBatchNorm(features)
+
+    def forward(self, x, time_mask: Optional[torch.Tensor] = None):
+        inputs = x
+        act = self.activation
+        x = act(self.TFBatchNorm_0(self.Conv_0(x)))
+        if time_mask is not None:
+            # re-zero the padded time rows before the depthwise conv, whose
+            # temporal extent would otherwise read them (layers.py:112-116)
+            x = torch.where(time_mask, x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+        x = act(self.TFBatchNorm_1(self.Conv_1(x)))
+        x = self.TFBatchNorm_2(self.Conv_2(x))
+        if hasattr(self, "Conv_3"):
+            inputs = self.TFBatchNorm_3(self.Conv_3(inputs))
+        return x + inputs
+
+
+class MfccNet(nn.Module):
+    """Audio backbone over mel images (ref: tinynet.py:154-215).
+
+    Input ``[B, 1, T*5, 80]`` (NCHW); frequency is downsampled x64, time is
+    kept.  ``valid_rows`` [B] re-zeroes activations past each row's length
+    after every stage (and pools see ``-inf`` there), so a time-padded run
+    equals the exact-length run on the valid rows."""
+
+    # (widths index, expansion) of blocks block1_0 .. block7_0, and the
+    # blocks a [2,2]/[1,2] max pool follows (layers.py:207-227)
+    _BLOCKS = ((1, 1), (2, 6), (2, 6), (3, 6), (3, 6), (3, 6), (4, 6),
+               (4, 6), (4, 6), (4, 6), (5, 6), (5, 6), (5, 6), (6, 6),
+               (6, 6), (6, 6), (7, 6))
+    _POOL_AFTER = (1, 3, 6, 13)
+
+    def __init__(self, output_channels: int = 256, width_mult: float = 1.0,
+                 widths: Tuple[int, ...] = (32, 64, 64, 128, 192, 256, 256,
+                                            256)):
+        super().__init__()
+        w = lambda f: max(8, int(f * width_mult))
+        ch = w(widths[0])
+        self.ConvBN_0 = ConvBN(1, ch, (9, 5), (1, 2))
+        for i, (wi, e) in enumerate(self._BLOCKS):
+            out = w(widths[wi])
+            self.add_module(f"InvertedResidual_{i}",
+                            InvertedResidual(ch, out, e))
+            ch = out
+        self.ConvBN_1 = ConvBN(ch, output_channels, (1, 1), (1, 1))
+
+    def forward(self, x, valid_rows: Optional[torch.Tensor] = None):
+        if valid_rows is None:
+            tmask = None
+            m0 = lambda v: v
+            neg = lambda v: v
+        else:
+            rows = torch.arange(x.shape[2], device=x.device)
+            tmask = (rows[None, :] < valid_rows[:, None])[:, None, :, None]
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            ninf = torch.full((), -math.inf, dtype=x.dtype, device=x.device)
+            m0 = lambda v: torch.where(tmask, v, zero)
+            neg = lambda v: torch.where(tmask, v, ninf)
+        x = m0(x)
+        x = m0(self.ConvBN_0(x))
+        for i in range(len(self._BLOCKS)):
+            x = m0(getattr(self, f"InvertedResidual_{i}")(x, tmask))
+            if i in self._POOL_AFTER:
+                x = m0(max_pool_same(neg(x), (2, 2), (1, 2)))
+        return m0(self.ConvBN_1(x))
+
+
+class TFGRUCell(nn.Module):
+    """tf.contrib.rnn.GRUCell math (ref: bfmnet.py:53):
+    ``r, u = sigmoid([x, h] W_g + b_g)``, ``c = tanh([x, r*h] W_c + b_c)``,
+    ``h' = u*h + (1-u)*c``."""
+
+    def __init__(self, in_dim: int, num_units: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_dim + num_units, 2 * num_units)
+        self.Dense_1 = nn.Linear(in_dim + num_units, num_units)
+
+    def forward(self, h, x):
+        gates = torch.sigmoid(self.Dense_0(torch.cat([x, h], dim=-1)))
+        r, u = gates.chunk(2, dim=-1)
+        c = torch.tanh(self.Dense_1(torch.cat([x, r * h], dim=-1)))
+        return u * h + (1 - u) * c
+
+
+class MaskedGRU(nn.Module):
+    """``tf.nn.dynamic_rnn(sequence_length=...)`` output semantics over a
+    TFGRUCell stack (ref: bfmnet.py:44-69): run over time, zero the
+    outputs past each row's length (JAX ``masked_gru`` at inference)."""
+
+    def __init__(self, in_dim: int, num_units: int, num_layers: int = 1):
+        super().__init__()
+        self.num_units = num_units
+        self.num_layers = num_layers
+        for layer in range(num_layers):
+            self.add_module(f"ScanTFGRUCell_{layer}", TFGRUCell(
+                in_dim if layer == 0 else num_units, num_units))
+
+    def forward(self, inputs, seq_len):
+        b, t, _ = inputs.shape
+        x = inputs
+        mask = (torch.arange(t, device=x.device)[None, :]
+                < seq_len[:, None])[..., None]
+        for layer in range(self.num_layers):
+            cell = getattr(self, f"ScanTFGRUCell_{layer}")
+            h = x.new_zeros((b, self.num_units))
+            outs = []
+            for i in range(t):
+                h = cell(h, x[:, i])
+                outs.append(h)
+            x = torch.stack(outs, dim=1) * mask
+        return x

@@ -1,0 +1,220 @@
+"""PixRefer generator — reference-conditioned pix2pix with alpha compositing.
+
+Port of the generator side of ``voicepuppet_tpu/models/pixrefer.py``
+(:58-272): two 4-level strided-conv encoders (rendered face, 6 ch;
+foreground reference, 3 ch) merged at 1/16 scale, 4 more encoder levels,
+7 deconv levels with U-Net skips, a tanh RGBA head, then ``composite``.
+
+BatchNorm is the reference's always-``training=True`` batch norm: the
+moments of the chunk being rendered, even at inference, accumulated in
+float32 (``StatelessBatchNorm``).  ``Generator`` takes and returns NHWC
+like the JAX module; inside it runs NCHW.  Its convs run in the dtype of
+their weights — ``Synthesizer`` casts them to bfloat16 on the card, as the
+JAX serving path runs ``gan_dtype=bfloat16`` — while BN moments, the tanh
+and the compositing stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from voicepuppet_torch.models.layers import pad_same
+
+
+def lrelu(x, a: float = 0.2):
+    return F.leaky_relu(x, negative_slope=a)
+
+
+class StatelessBatchNorm(nn.Module):
+    """Batch-moment normalization with learned scale/offset, eps 1e-5,
+    moments in float32 (ref: pixrefer.py:58-86)."""
+
+    def __init__(self, ch: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
+        mean2 = torch.square(xf).mean(dim=(0, 2, 3), keepdim=True)
+        var = mean2 - torch.square(mean)
+        inv = torch.rsqrt(var + self.epsilon)
+        y = ((xf - mean) * inv * self.weight.view(1, -1, 1, 1)
+             + self.bias.view(1, -1, 1, 1))
+        return y.to(x.dtype)
+
+
+class GenConv(nn.Module):
+    """4x4 stride-2 'SAME' conv (ref: pixrefer.py:66-74)."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_ch, features, 4, 2, padding=0)
+
+    def forward(self, x):
+        return self.Conv_0(pad_same(x, (4, 4), (2, 2)))
+
+
+class GenDeconv(nn.Module):
+    """4x4 stride-2 'SAME' transposed conv (ref: pixrefer.py:76-86).
+
+    flax ``ConvTranspose(padding="SAME")`` is ``lax.conv_transpose``: the
+    input dilated by 2, padded by ``(k+s-2) - ceil((k+s-2)/2)`` = (2, 2)
+    for k=4, s=2, then a plain correlation — output exactly 2x.  torch's
+    ``ConvTranspose2d(padding=p)`` pads the dilated input by ``k-1-p``,
+    so p = 1 gives the same (2, 2); its kernel is the spatially flipped
+    flax kernel (weights.py)."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.ConvTranspose_0 = nn.ConvTranspose2d(in_ch, features, 4, 2,
+                                                  padding=1)
+
+    def forward(self, x):
+        return self.ConvTranspose_0(x)
+
+
+class Generator(nn.Module):
+    """ref: pixrefer.py:128-188.  inputs [B,S,S,6], fg_ref [B,S,S,3]
+    (NHWC, in [-1,1]) -> raw tanh output [B,S,S,4] float32."""
+
+    def __init__(self, ngf: int = 64, out_channels: int = 4):
+        super().__init__()
+        self.ngf = ngf
+        bn = iter(range(17))
+
+        def add_bn(ch):
+            self.add_module(f"StatelessBatchNorm_{next(bn)}",
+                            StatelessBatchNorm(ch))
+
+        self.encoder_1 = GenConv(6, ngf)
+        ch = ngf
+        for i, out in enumerate((ngf * 2, ngf * 2, ngf * 4)):
+            self.add_module(f"encoder_{i + 2}", GenConv(ch, out))
+            add_bn(out)
+            ch = out
+        self.encoder_fg_1 = GenConv(3, ngf)
+        ch = ngf
+        for i, out in enumerate((ngf * 2, ngf * 2, ngf * 4)):
+            self.add_module(f"encoder_fg_{i + 2}", GenConv(ch, out))
+            add_bn(out)
+            ch = out
+        enc = [ngf * 8]                   # merged trunk input channels
+        for i, out in enumerate((ngf * 4, ngf * 8, ngf * 8, ngf * 8)):
+            self.add_module(f"merged_encoder_{i + 2}", GenConv(enc[-1], out))
+            add_bn(out)
+            enc.append(out)
+        ch = enc[-1]
+        for dl, out in enumerate((ngf * 8, ngf * 8, ngf * 4, ngf * 4)):
+            skip = len(enc) - dl - 1
+            in_ch = ch if dl == 0 else ch + enc[skip]
+            self.add_module(f"merged_decoder_{skip + 1}",
+                            GenDeconv(in_ch, out))
+            add_bn(out)
+            ch = out
+        face = [ngf, ngf * 2, ngf * 2, ngf * 4]
+        for dl, out in enumerate((ngf * 2, ngf * 2, ngf)):
+            skip = len(face) - dl - 1
+            self.add_module(f"merged2_decoder_{skip + 1}",
+                            GenDeconv(ch + face[skip], out))
+            add_bn(out)
+            ch = out
+        self.decoder_1 = GenDeconv(ch + ngf, out_channels)
+
+    def forward(self, inputs, fg_ref):
+        dtype = self.encoder_1.Conv_0.weight.dtype
+        x = inputs.permute(0, 3, 1, 2).to(dtype)
+        fg = fg_ref.permute(0, 3, 1, 2).to(dtype)
+        bn = iter(getattr(self, f"StatelessBatchNorm_{i}") for i in range(17))
+
+        layers = [self.encoder_1(x)]
+        for i in range(3):
+            layers.append(next(bn)(getattr(self, f"encoder_{i + 2}")(
+                lrelu(layers[-1]))))
+        fg_layers = [self.encoder_fg_1(fg)]
+        for i in range(3):
+            fg_layers.append(next(bn)(getattr(self, f"encoder_fg_{i + 2}")(
+                lrelu(fg_layers[-1]))))
+        merged = [torch.cat([layers[-1], fg_layers[-1]], dim=1)]
+        for i in range(4):
+            merged.append(next(bn)(getattr(self, f"merged_encoder_{i + 2}")(
+                lrelu(merged[-1]))))
+        num_enc = len(merged)
+        for dl in range(4):
+            skip = num_enc - dl - 1
+            x = merged[-1] if dl == 0 else torch.cat(
+                [merged[-1], merged[skip]], dim=1)
+            merged.append(next(bn)(getattr(
+                self, f"merged_decoder_{skip + 1}")(F.relu(x))))
+        num_enc2 = len(layers)
+        for dl in range(3):
+            skip = num_enc2 - dl - 1
+            x = torch.cat([merged[-1], layers[skip]], dim=1)
+            merged.append(next(bn)(getattr(
+                self, f"merged2_decoder_{skip + 1}")(F.relu(x))))
+        x = torch.cat([merged[-1], layers[0]], dim=1)
+        x = self.decoder_1(F.relu(x))
+        return torch.tanh(x.float()).permute(0, 2, 3, 1)
+
+
+def composite(gen_out, targets):
+    """RGB+alpha compositing (ref: pixrefer.py:219-228) ->
+    (outputs, alphas, outputs_fg), all NHWC."""
+    rgb = gen_out[..., :3]
+    alpha = ((gen_out[..., 3:] + 1.0) / 2.0).expand(-1, -1, -1, 3)
+    outputs = rgb * alpha + targets * (1.0 - alpha)
+    outputs_fg = rgb * alpha + alpha - 1.0
+    return outputs, alpha, outputs_fg
+
+
+def preprocess(image):
+    """[0,1] -> [-1,1]."""
+    return image * 2.0 - 1.0
+
+
+def deprocess(image):
+    """[-1,1] -> [0,1]."""
+    return (image + 1.0) / 2.0
+
+
+class PixReferNet(nn.Module):
+    """Generator side (ref: pixrefer.py:258-272): inputs [B,S,S,6],
+    fg_inputs [B,S,S,6] (only the first 3 channels reach G), targets
+    [B,S,S,3], all in [-1,1] -> composite(G(...), targets)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.generator = Generator(cfg.ngf, 4)
+
+    def forward(self, inputs, fg_inputs, targets):
+        return composite(self.generator(inputs, fg_inputs[..., :3]),
+                         targets)
+
+    def set_conv_dtype(self, dtype: torch.dtype) -> "PixReferNet":
+        """Cast the conv weights (not the BN affine) to ``dtype``."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.to(dtype)
+        return self
+
+
+def init_pixrefer_(model: PixReferNet, generator: torch.Generator
+                   ) -> PixReferNet:
+    """Fresh weights with the JAX init's distributions: conv kernels
+    N(0, 0.02), zero conv biases, BN scale 1 + N(0, 0.02), BN bias 0."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, StatelessBatchNorm):
+                m.weight.normal_(0.0, 1.0, generator=generator)
+                m.weight.mul_(0.02).add_(1.0)
+                m.bias.zero_()
+    return model

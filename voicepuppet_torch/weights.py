@@ -1,0 +1,90 @@
+"""Parameter bridge: JAX parameter trees -> this package's state_dicts.
+
+The JAX package stores parameters as nested dicts (flax variables); the
+port's modules keep the flax scope names, so a JAX path maps onto a
+state_dict key one to one, with these layout changes:
+
+  * Dense ``kernel [in, out]``            -> ``weight [out, in]``
+  * Conv ``kernel`` HWIO                  -> ``weight`` OIHW (the depthwise
+    ``feature_group_count`` convs included: ``[kh, kw, 1, C]`` ->
+    ``[C, 1, kh, kw]``)
+  * flax ``ConvTranspose`` ``kernel [kh, kw, in, out]``
+    (``transpose_kernel=False``: a plain correlation over the dilated
+    input) -> torch ``ConvTranspose2d`` ``weight [in, out, kh, kw]``, which
+    is the gradient of a conv and so correlates with the spatially flipped
+    kernel: the kernel is flipped in both spatial axes
+  * ``TFBatchNorm`` ``params/.../BatchNorm_0/bias`` and
+    ``batch_stats/.../BatchNorm_0/{mean,var}`` -> ``bias``,
+    ``running_mean``, ``running_var`` (the ``BatchNorm_0`` scope is folded
+    into ``TFBatchNorm``)
+  * ``StatelessBatchNorm`` ``scale`` -> ``weight``
+
+Leaves may be numpy arrays or anything ``np.asarray`` takes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_COLLECTIONS = ("params", "batch_stats")
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (str(key),))
+        else:
+            yield path + (str(key),), np.asarray(value)
+
+
+def convert_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """One JAX leaf -> the torch layout of the matching parameter."""
+    if path[-1] != "kernel":
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4 and len(path) > 1 and path[-2].startswith(
+            "ConvTranspose"):
+        return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
+    if value.ndim == 4:
+        return np.transpose(value, (3, 2, 0, 1))
+    raise ValueError(f"unexpected kernel rank {value.ndim} at "
+                     f"{'/'.join(path)}")
+
+
+def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables (``{"params": ..., "batch_stats": ...}``) or a bare
+    params tree -> a state_dict keyed like the port's modules."""
+    top = set(tree)
+    roots = ([tree[c] for c in _COLLECTIONS if c in tree]
+             if top & set(_COLLECTIONS) else [tree])
+    out: Dict[str, torch.Tensor] = {}
+    for root in roots:
+        for path, value in _leaves(root):
+            if path[-1] not in _LEAF_NAMES:
+                raise KeyError(f"unmapped leaf {'/'.join(path)}")
+            mods = [p for p in path[:-1] if p != "BatchNorm_0"]
+            key = ".".join(mods + [_LEAF_NAMES[path[-1]]])
+            out[key] = torch.from_numpy(np.ascontiguousarray(
+                convert_leaf(path, value), dtype=np.float32))
+    return out
+
+
+def load_flax_(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Load a flax tree into ``module``, failing on any missing,
+    unexpected or mis-shaped entry."""
+    state = state_dict_from_flax(tree)
+    own = module.state_dict()
+    bad = [k for k in state if k in own and own[k].shape != state[k].shape]
+    if bad:
+        raise ValueError("shape mismatch: " + ", ".join(
+            f"{k} {tuple(state[k].shape)} vs {tuple(own[k].shape)}"
+            for k in bad[:5]))
+    module.load_state_dict(state, strict=True)
+    return module
