@@ -7,27 +7,48 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
 /usr/local/cuda).  Phases, each of which fails the script on any fault:
 
   1. device and build   print the card's name and power limit; build the
-                        raster kernel (csrc/raster.cu) into build/.
-  2. raster parity      the CUDA kernel against its plain PyTorch version,
-                        bit for bit, through every entry point: the quirk
-                        meshes of ops/raster_selftest.py, then the full
-                        189² synthetic mesh at 224² for one 32-frame chunk of
-                        the main path, through render_colors_auto.
-  3. main path          SynthesisAssets.demo(Config(), synthetic_bfm(189,
-                        189), chunk=32) and Synthesizer.synthesize on 2.2 s of
+                        raster kernels (csrc/raster.cu: flat K1, grouped K4,
+                        interpolated K3 and K5) into build/ and print ptxas's
+                        registers and spills.
+  2. raster parity      every CUDA kernel against its plain PyTorch version,
+                        bit for bit, through every entry point: the quirk,
+                        grouped and interp meshes of ops/raster_selftest.py,
+                        then the full 189² synthetic mesh at 224² for one
+                        32-frame chunk of the main path (K4 at groups 1, 4
+                        and 33, K3, K5), K4 against K1 and K5 against K3.
+  3. main path          Config() (ngf 64, 512², BFMNet width 1.0),
+                        synthetic_bfm(189, 189), chunk 32, random weights
+                        from seed 0: Synthesizer.synthesize on 2.2 s of
                         audio (55 frames: one chunk of 32 and a tail bucket
-                        of 32), the generator in bfloat16 at ngf 64, 512².
-                        The raster launch count must equal the chunk count.
-                        Then frames/s over timed repeats, a per-stage time
-                        breakdown of one chunk, and the kernel's time beside
-                        the plain version's and its bound.
-  4. reference checks   the card against the port on the CPU (float32
+                        of 32), the generator in bfloat16.  The flat raster
+                        K1 must launch once per chunk.  Then frames/s over
+                        timed repeats, a per-stage time breakdown of one
+                        chunk.
+  4. streaming path     the same weights in Synthesizer(raster_group=4):
+                        StreamingSynthesizer fed the 55-frame clip in 0.2 s
+                        pcm pieces, then flush.  The grouped raster K4 must
+                        launch once per block emitted; frames uint8, 55,
+                        not constant; the streamed coefficients within 2e-2
+                        of the batch predict_expressions on interior frames
+                        (tests/test_torch_streaming.py); time from first
+                        feed to first block, frames/s over the stream.
+  5. texture path       render_texture_kernel at 224², B = 32, on the full
+                        mesh with texture coordinates from the sphere's
+                        (theta, phi) grid and a 256² texture, group 0 (K3)
+                        and group 4 (K5): winner and depth bit for bit
+                        against the plain version, image within 1e-5, and
+                        K5 equal to K3.
+  6. kernel times       each kernel beside its plain version and its bound,
+                        at the shapes its path gives it.
+  7. reference checks   the card against the port on the CPU (float32
                         everywhere): the full-width expression coefficients,
                         and whole frames at a small size (ngf 8, 256²); the
                         served bf16 generator against its float32 weights on
                         the card at full width, with a bf16-BN-moments
                         control that the band must reject.
 
+Each path runs with every launch count set to 0 just before it and read
+just after; a kernel of that path that did not launch fails the script.
 Output: progress lines, one JSON line of kernels, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}.  Exits nonzero, printing
 no result, when there is no CUDA device or no voicepuppet_torch beside it.
@@ -48,6 +69,12 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 RASTER_OPS_PER_TRIANGLE = 20   # setup: depth, edges, dots, deno, 1/deno
 RASTER_OPS_PER_BBOX_PIXEL = 20  # 2 sub, 10 mul, 5 add/sub, 3 compares
+# interpolated depth: + 4 border compares, 2 sub, 3 mul, 2 add, 1 compare
+INTERP_OPS_PER_BBOX_PIXEL = 32
+STREAM_PIECE = 3200         # 0.2 s of 16 kHz pcm per feed
+STREAM_COEFF_BAND = 2e-2    # interior frames, tests/test_torch_streaming.py
+STREAM_INTERIOR = slice(16, 48)
+TEX_SIZE = 256
 # bf16 generator vs float32, mean |diff| in 8-bit codes at full width: the
 # served path read 0.145 on an H100, with the BN moments in bf16 0.227
 GEN_BF16_MEAN_CODES = 0.185
@@ -119,6 +146,31 @@ def raster_bound_ms(verts, colors, tris, winner, h, w):
             else "operations", nbytes, ops, n_colored)
 
 
+def interp_bound_ms(verts, tris, h, w):
+    """Least time for one interpolated-depth raster call (K3/K5): the
+    triangles and each vertex some triangle uses, read once, and winner +
+    depth written once, over HBM bandwidth; against the float32 operations
+    (per finite triangle, and per pixel of each clipped bbox) over the
+    float32 peak."""
+    import torch
+    b = verts.shape[0]
+    nbytes = (b * torch.unique(tris).numel() * 3 * 4 + tris.numel() * 4
+              + b * h * w * 8)
+    corners = verts[:, tris.long()]                     # [B,F,3,3]
+    xs, ys = corners[..., 0], corners[..., 1]
+    bw = (torch.clamp(torch.floor(xs.amax(-1)), max=w - 1.0)
+          - torch.clamp(torch.ceil(xs.amin(-1)), min=0.0) + 1).clamp(min=0)
+    bh = (torch.clamp(torch.floor(ys.amax(-1)), max=h - 1.0)
+          - torch.clamp(torch.ceil(ys.amin(-1)), min=0.0) + 1).clamp(min=0)
+    live = torch.isfinite(corners[..., :2]).all(-1).all(-1)
+    ops = (RASTER_OPS_PER_TRIANGLE * int(live.sum())
+           + INTERP_OPS_PER_BBOX_PIXEL * int((bw * bh * live).sum()))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
 def bn_forward_bf16_moments(self, x):
     """Negative control for the generator's precision gate: StatelessBatchNorm
     with its moments and normalisation taken in bfloat16, which the served
@@ -162,10 +214,20 @@ def main():
     from voicepuppet_torch.face3d import bfm, morph
     from voicepuppet_torch.face3d import raster as plain
     from voicepuppet_torch.models import pixrefer as px
-    from voicepuppet_torch.ops import RASTER, render_colors_auto
+    from voicepuppet_torch import ops as tops
+    from voicepuppet_torch.ops import KERNELS, render_colors_auto
     from voicepuppet_torch.ops import raster_selftest
+    from voicepuppet_torch.ops.raster import LIBRARY
+    from voicepuppet_torch.pipeline import streaming
     from voicepuppet_torch.pipeline import synthesize as syn
     from voicepuppet_torch.pipeline.align import head_sway_angles
+
+    def reset_counts():
+        for k in KERNELS:
+            k.launches = 0
+
+    def counts():
+        return {k.name: k.launches for k in KERNELS}
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -176,10 +238,12 @@ def main():
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    RASTER.library()
-    log(f"build: raster kernel in {time.perf_counter() - t0:.2f} s")
-    for line in RASTER.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+    LIBRARY.function()
+    log(f"build: raster kernels (K1, K4, K3, K5: csrc/raster.cu) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in LIBRARY.build_log.splitlines():
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             log(f"  ptxas: {line.strip()}")
 
     # ---- 2. raster parity on the quirk meshes ---------------------------
@@ -187,14 +251,16 @@ def main():
     report = raster_selftest.run_selftest(dev)
     torch.cuda.synchronize()
     log(f"parity: {len(report)} quirk cases bit-exact kernel == plain "
+        f"(K1; K4 at groups {raster_selftest.GROUP_SIZES}; K3; K5), "
         f"({time.perf_counter() - t0:.2f} s): {json.dumps(report)}")
 
     # ---- 3. the main path at full width ---------------------------------
     cfg = tcfg.Config()
     face_model = bfm.synthetic_bfm(num_theta=189, num_phi=189)
-    synth, identity = syn.SynthesisAssets.demo(cfg, seed=SEED,
-                                               face_model=face_model,
-                                               chunk=CHUNK)
+    trees = syn.SynthesisAssets.init_trees(cfg, SEED)
+    synth = syn.Synthesizer(cfg, face_model, *trees, chunk=CHUNK)
+    identity = syn.synthetic_identity(face_model, SEED,
+                                      cfg.pixrefer.img_size)
     s = cfg.pixrefer.img_size
     rng = np.random.RandomState(SEED)
     n_pcm = (FRAMES - 1) * cfg.frame_wav_scale
@@ -229,19 +295,43 @@ def main():
         raster_selftest.expect_equal(got_mask, want_mask, "auto mask")
         raster_selftest.expect_equal(got_img, want_img, "auto image")
         max_abs_err = int((got_img.int() - want_img.int()).abs().max())
-    log(f"parity: full mesh B={CHUNK} 224² bit-exact through "
-        f"render_colors_auto, {covered / CHUNK:.0f} covered px/frame")
+        g_img, g_mask = render_colors_auto(verts, colors, tri, h=224, w=224,
+                                           group=4)
+        want_g = plain.render_colors(verts, colors, tri, 224, 224, group=4)
+        raster_selftest.expect_equal(g_mask, want_g[1], "auto group 4 mask")
+        raster_selftest.expect_equal(g_img, want_g[0], "auto group 4 image")
+        k4_err = int((g_img.int() - want_g[0].int()).abs().max())
+        k1_w = tops.rasterize_winner(verts, tri, 224, 224)
+        k4_w = tops.rasterize_winner_grouped(verts, tri, 224, 224, group=4)
+        k3_w = tops.rasterize_winner_interp(verts, tri, 224, 224)
+        k5_w = tops.rasterize_winner_interp(verts, tri, 224, 224, group=4)
+        p3_w = plain.rasterize_winner_interp(verts, tri, 224, 224)
+        torch.cuda.synchronize()
+        for a, b, label in ((k4_w, k1_w, "K4 == K1"), (k5_w, k3_w,
+                                                        "K5 == K3")):
+            raster_selftest.expect_equal(a[0], b[0], f"{label} winner")
+            raster_selftest.expect_equal(a[1], b[1], f"{label} depth")
+        k3_err = float((k3_w[1] - p3_w[1]).abs().max())
+        k5_err = float((k5_w[1] - p3_w[1]).abs().max())
+        interp_covered = int((k3_w[0] < nf).sum())
+    log(f"parity: full mesh B={CHUNK} 224² bit-exact kernel == plain "
+        f"through render_colors_auto (K1, K4 group 4) and for K4 at groups "
+        f"{raster_selftest.GROUP_SIZES}, K3, K5; K4 == K1 and K5 == K3 bit "
+        f"for bit; {covered / CHUNK:.0f} covered px/frame flat, "
+        f"{interp_covered / CHUNK:.0f} interp")
 
     n_chunks = -(-FRAMES // CHUNK)
-    RASTER.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     frames = synth.synthesize(panel, pcm, identity)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = RASTER.launches
-    if launches != n_chunks:
-        raise AssertionError(f"raster kernel launched {launches} times for "
-                             f"{n_chunks} chunks")
+    launched = counts()
+    launches = launched["raster_flat"]
+    if launches != n_chunks or sum(launched.values()) != launches:
+        raise AssertionError(f"main path launches {launched} for "
+                             f"{n_chunks} chunks: K1 once per chunk and "
+                             "nothing else")
     if frames.shape != (FRAMES, s, s, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"frames {frames.dtype} {frames.shape}")
     if not frames.std(axis=0).max() > 0 or frames.max() == 0:
@@ -319,8 +409,143 @@ def main():
         f"kernel/bound {k_ms / bound:.2f}; "
         f"B=4: kernel {k4_ms:.4f} ms, plain {p4_ms:.4f} ms; {card}")
 
-    # ---- 4. the card against the port on the CPU ------------------------
-    cpu_bfm, cpu_g = syn.SynthesisAssets.init_trees(cfg, SEED)
+    # ---- 4. the streaming path at full width: the grouped raster K4 -----
+    stream_synth = syn.Synthesizer(cfg, face_model, *trees, chunk=CHUNK,
+                                   raster_group=4)
+    # 55 frames of pcm: the main path's 54 x 640 samples and one frame more
+    pcm_stream = np.concatenate([pcm, (0.05 * np.random.RandomState(
+        SEED + 2).randn(cfg.frame_wav_scale)).astype(np.float32)])
+    ref_np, fg_np = panel[:, s:2 * s], panel[:, :s]
+
+    def run_stream():
+        ss = streaming.StreamingSynthesizer(stream_synth, identity, ref_np,
+                                            fg_np)
+        blocks, first = [], None
+        t0 = time.perf_counter()
+        for i in range(0, pcm_stream.shape[0], STREAM_PIECE):
+            blocks += ss.feed(pcm_stream[i:i + STREAM_PIECE])
+            if blocks and first is None:
+                first = time.perf_counter() - t0
+        blocks += ss.flush()
+        total = time.perf_counter() - t0
+        return blocks, (total if first is None else first), total
+
+    run_stream()                                        # warm-up
+    stream_runs = []
+    for i in range(3):
+        if i == 0:
+            reset_counts()
+        blocks, first_block_s, total_s = run_stream()
+        if i == 0:
+            stream_launched = counts()
+            stream_blocks = blocks
+        stream_runs.append((first_block_s, total_s))
+    k4_launches = stream_launched["raster_grouped"]
+    if (k4_launches != len(stream_blocks)
+            or sum(stream_launched.values()) != k4_launches):
+        raise AssertionError(f"streaming launches {stream_launched} for "
+                             f"{len(stream_blocks)} blocks: K4 once per "
+                             "block and nothing else")
+    streamed = np.concatenate(stream_blocks)
+    if streamed.shape != (FRAMES, s, s, 3) or streamed.dtype != np.uint8:
+        raise AssertionError(f"streamed frames {streamed.dtype} "
+                             f"{streamed.shape}")
+    if not streamed.std(axis=0).max() > 0 or streamed.max() == 0:
+        raise AssertionError("streamed frames are constant")
+    sp = streaming.StreamingCoeffPredictor(stream_synth, chunk=CHUNK)
+    coeff_blocks = []
+    for i in range(0, pcm_stream.shape[0], STREAM_PIECE):
+        coeff_blocks += sp.feed(pcm_stream[i:i + STREAM_PIECE])
+    streamed_exp = torch.cat(coeff_blocks + sp.flush())
+    batch_exp = stream_synth.predict_expressions(pcm)[0]
+    stream_err = float((streamed_exp[STREAM_INTERIOR]
+                        - batch_exp[STREAM_INTERIOR]).abs().max())
+    if not stream_err < STREAM_COEFF_BAND:
+        raise AssertionError(f"streamed coefficients off the batch path by "
+                             f"{stream_err} on frames {STREAM_INTERIOR}")
+    log(f"streaming path: {len(stream_blocks)} blocks "
+        f"{[b.shape[0] for b in stream_blocks]} -> {streamed.shape} "
+        f"{streamed.dtype}, K4 launches {k4_launches}; coefficients vs batch "
+        f"max |diff| {stream_err:.3g} on frames {STREAM_INTERIOR.start}-"
+        f"{STREAM_INTERIOR.stop - 1} (band {STREAM_COEFF_BAND})")
+    log(f"streaming path: first feed to first block "
+        f"{json.dumps([round(r[0] * 1e3, 1) for r in stream_runs])} ms, "
+        f"frames/s over the stream "
+        f"{json.dumps([round(FRAMES / r[1], 2) for r in stream_runs])} "
+        f"(3 warm runs, {STREAM_PIECE}-sample feeds fed as fast as they "
+        f"return; lookahead {CHUNK} + 12 frames of audio), {card}")
+    del stream_synth
+
+    # ---- 5. the texture path: K3 (group 0) and K5 (group 4) -------------
+    uv = torch.as_tensor(raster_selftest.sphere_uv(189, 189, TEX_SIZE,
+                                                   TEX_SIZE), device=dev)
+    tex = torch.as_tensor(np.random.RandomState(SEED + 3).rand(
+        TEX_SIZE, TEX_SIZE, 3).astype(np.float32), device=dev)
+    with torch.inference_mode():
+        reset_counts()
+        textured = {g: tops.render_texture_kernel(verts, tri, tex, uv, tri,
+                                                  h=224, w=224, group=g)
+                    for g in (0, 4)}
+        torch.cuda.synchronize()
+        tex_launched = counts()
+        if (tex_launched["raster_interp"] != 1
+                or tex_launched["raster_interp_grouped"] != 1
+                or sum(tex_launched.values()) != 2):
+            raise AssertionError(f"texture path launches {tex_launched}: "
+                                 "K3 and K5 once each")
+        want_tex = plain.render_texture(verts, tri, tex, uv, tri, 224, 224)
+        want_w = plain.rasterize_winner_interp(verts, tri, 224, 224)
+        tex_err = 0.0
+        for g, (img, depth) in textured.items():
+            winner, kdepth = tops.rasterize_winner_interp(verts, tri, 224,
+                                                          224, group=g)
+            raster_selftest.expect_equal(winner, want_w[0],
+                                         f"texture group {g} winner")
+            raster_selftest.expect_equal(kdepth, want_w[1],
+                                         f"texture group {g} depth")
+            raster_selftest.expect_equal(depth, want_tex[1],
+                                         f"texture group {g} depth buffer")
+            tex_err = max(tex_err, float((img - want_tex[0]).abs().max()))
+        raster_selftest.expect_equal(textured[4][0], textured[0][0],
+                                     "texture K5 == K3 image")
+        if not tex_err <= 1e-5:
+            raise AssertionError(f"texture image off the plain version by "
+                                 f"{tex_err}")
+        tex_std = float(textured[0][0].std())
+    log(f"texture path: render_texture_kernel B={CHUNK} 224², "
+        f"{TEX_SIZE}² texture, launches K3 "
+        f"{tex_launched['raster_interp']} K5 "
+        f"{tex_launched['raster_interp_grouped']}; winner/depth bit-exact, "
+        f"image max |diff| {tex_err:.3g} (band 1e-5), K5 == K3, image std "
+        f"{tex_std:.3g}")
+
+    # ---- 6. K4, K3, K5 against their plain versions and bounds ----------
+    with torch.inference_mode():
+        k4_ms = cuda_ms(lambda: tops.render_colors_grouped(
+            verts, colors, tri, h=224, w=224, group=4), 50, 5)
+        p4g_ms = cuda_ms(lambda: plain.render_colors(
+            verts, colors, tri, 224, 224, group=4), 5, 1)
+        k3_ms = cuda_ms(lambda: tops.rasterize_winner_interp(
+            verts, tri, 224, 224), 50, 5)
+        p3_ms = cuda_ms(lambda: plain.rasterize_winner_interp(
+            verts, tri, 224, 224), 5, 1)
+        k5_ms = cuda_ms(lambda: tops.rasterize_winner_interp(
+            verts, tri, 224, 224, group=4), 50, 5)
+        p5_ms = cuda_ms(lambda: plain.rasterize_winner_interp(
+            verts, tri, 224, 224, group=4), 5, 1)
+        tex_ms = cuda_ms(lambda: tops.render_texture_kernel(
+            verts, tri, tex, uv, tri, h=224, w=224), 20, 3)
+        ibound, ibound_by, inbytes, iops = interp_bound_ms(verts, tri, 224,
+                                                           224)
+    log(f"raster B={CHUNK}: K4 group 4 {k4_ms:.4f} ms (plain "
+        f"{p4g_ms:.4f} ms, bound {bound:.4f} ms as K1); K3 {k3_ms:.4f} ms "
+        f"(plain {p3_ms:.4f} ms); K5 group 4 {k5_ms:.4f} ms (plain "
+        f"{p5_ms:.4f} ms); interp bound {ibound:.4f} ms ({ibound_by}: "
+        f"{inbytes} B, {iops} ops); render_texture_kernel total "
+        f"{tex_ms:.4f} ms; {card}")
+
+    # ---- 7. the card against the port on the CPU ------------------------
+    cpu_bfm, cpu_g = trees
     cpu_synth = syn.Synthesizer(cfg, face_model, cpu_bfm, cpu_g,
                                 chunk=CHUNK, gan_dtype=torch.float32,
                                 device="cpu")
@@ -397,18 +622,27 @@ def main():
         f"(bands 0.01, 1e-3)")
 
     kernels = [{
-        "name": "raster_flat",
+        "name": name,
         "route": "cuda",
         "source": "voicepuppet_torch/csrc/raster.cu",
-        "replaces": "voicepuppet_tpu/ops/raster_pallas.py:126",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
+        "replaces": f"voicepuppet_tpu/ops/raster_pallas.py:{line}",
+        "launches": n,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": pms,
+        "bound_ms": bms,
+        "bound_by": bby,
         "library_ms": None,
-    }]
+    } for name, line, n, err, ms, pms, bms, bby in (
+        ("raster_flat", 126, launches, max_abs_err, k_ms, p_ms, bound,
+         bound_by),
+        ("raster_grouped", 337, k4_launches, k4_err, k4_ms, p4g_ms, bound,
+         bound_by),
+        ("raster_interp", 695, tex_launched["raster_interp"], k3_err, k3_ms,
+         p3_ms, ibound, ibound_by),
+        ("raster_interp_grouped", 769,
+         tex_launched["raster_interp_grouped"], k5_err, k5_ms, p5_ms, ibound,
+         ibound_by))]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -344,13 +344,6 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert tops.RASTER.launches == 0
 
 
-def test_grouped_raster_is_not_served_by_k1():
-    v = torch.zeros((1, 3, 3))
-    t = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tops.render_colors_auto(v, v, t, h=8, w=8, group=4)
-
-
 def test_device_bfm_refuses_triangle_indices_outside_the_mesh():
     """The kernel trusts the topology: its index range is checked once,
     where device_bfm makes it."""
@@ -364,3 +357,118 @@ def test_device_bfm_refuses_triangle_indices_outside_the_mesh():
     model.tri[3, 1] = model.num_vertices + 1          # 1-based: one past
     with pytest.raises(ValueError, match="outside"):
         tmorph.device_bfm(model, "cpu")
+
+
+# ---- K4: the grouped raster --------------------------------------------------
+
+def _port_grouped(verts, tris, colors, h, w, group=4, batch=1):
+    v = torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(verts[None], (batch,) + verts.shape)))
+    c = torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(colors[None], (batch,) + colors.shape)))
+    t = torch.from_numpy(np.array(tris, dtype=np.int32))
+    img, mask = tops.render_colors_grouped(v, c, t, h=h, w=w, group=group)
+    auto = tops.render_colors_auto(v, c, t, h=h, w=w, group=group)
+    np.testing.assert_array_equal(auto[0].numpy(), img.numpy())
+    np.testing.assert_array_equal(auto[1].numpy(), mask.numpy())
+    return img.numpy(), mask.numpy()
+
+
+def _jax_grouped(verts, tris, colors, h, w, batch=1, **kw):
+    vb = np.broadcast_to(verts[None], (batch,) + verts.shape)
+    cb = np.broadcast_to(colors[None], (batch,) + colors.shape)
+    img, mask = jpallas.render_colors_grouped_pallas(vb, cb, tris, h=h, w=w,
+                                                     interpret=True, **kw)
+    return np.asarray(img), np.asarray(mask)
+
+
+def test_grouped_matches_jax_grouped_kernel_on_the_fixture_mesh():
+    """The tests/test_raster.py fixture mesh, which takes the TPU's grouped
+    path (fits): the grouped kernel alone (fallback=False), and batch 16
+    through its lax.cond, equal the port's grouped plain version and the
+    sequential spec bit for bit."""
+    v, t, c, h, w = case_mesh()
+    spec = jref.render_colors_ref(v, t, c, h, w)
+    got = _port_grouped(v, t, c, h, w)
+    _equal((got[0][0], got[1][0]), spec)
+    want = _jax_grouped(v, t, c, h, w, fallback=False)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    got16 = _port_grouped(v, t, c, h, w, batch=16)
+    want16 = _jax_grouped(v, t, c, h, w, batch=16)
+    np.testing.assert_array_equal(got16[1], want16[1])
+    np.testing.assert_array_equal(got16[0], want16[0])
+
+
+def test_grouped_scattered_order_matches_jax_fallback():
+    """A group whose members lie 60 rows apart: the TPU takes its
+    per-triangle fallback, the port's grouped merge needs none."""
+    v, t, c, h, w = tself.GROUPED_CASES["grouped_scattered_order"]()
+    _, fits = jpallas._grouped_table(v[None], t, h, w, 32, 4, pad_to=64)
+    assert not bool(fits)
+    got = _port_grouped(v, t, c, h, w)
+    _equal((got[0][0], got[1][0]), jref.render_colors_ref(v, t, c, h, w))
+    want = _jax_grouped(v, t, c, h, w)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_grouped_in_group_depth_tie_first_wins():
+    """Six same-depth overlapping triangles over two groups: the lowest id
+    owns the overlap, and the JAX grouped kernel agrees bit for bit."""
+    v, t, c, h, w = tself.GROUPED_CASES["grouped_in_group_tie"]()
+    got = _port_grouped(v, t, c, h, w)
+    want = _jax_grouped(v, t, c, h, w, fallback=False)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0][0, 10, 10, 0] == 40
+    flat = _port(v, t, c, h, w, "kernel")
+    _equal((got[0][0], got[1][0]), flat)
+
+
+def test_grouped_degenerate_and_occlusion():
+    v, t, c, h, w = tself.GROUPED_CASES["grouped_degenerate_occlusion"]()
+    got = _port_grouped(v, t, c, h, w)
+    spec = jref.render_colors_ref(v, t, c, h, w)
+    _equal((got[0][0], got[1][0]), spec)
+    want = _jax_grouped(v, t, c, h, w, fallback=False)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert spec[1][10, 12] > 0 and got[0][0, 10, 10, 0] == 200
+
+
+@pytest.mark.parametrize("group", [1, 3, 4, 33])
+def test_grouped_winner_equals_flat_winner(group):
+    """Any group size gives the flat kernel's winner and depth, on the
+    mesh and with an oversized triangle among its neighbours."""
+    for case in (case_mesh, case_tall_triangle):
+        v, t, _, h, w = case()
+        vt = torch.from_numpy(v[None])
+        tt = torch.from_numpy(t.astype(np.int32))
+        gw, gd = tops.rasterize_winner_grouped(vt, tt, h=h, w=w, group=group)
+        fw, fd = tops.rasterize_winner(vt, tt, h=h, w=w)
+        assert torch.equal(gw, fw) and torch.equal(gd, fd)
+
+
+@pytest.mark.parametrize("name", sorted(tself.CASES))
+def test_selftest_cases_grouped_plain_equals_flat(name):
+    """Every quirk case of the on-card gate, through the grouped plain
+    version (K4's reference on the card) at each of its group sizes:
+    bit for bit the flat plain version's winner and depth."""
+    v, t, _, h, w = tself.CASES[name]()
+    vt = torch.from_numpy(v[None])
+    tt = torch.from_numpy(t.astype(np.int32))
+    want = traster.rasterize_winner(vt, tt, h, w)
+    for g in tself.GROUP_SIZES:
+        got = traster.rasterize_winner(vt, tt, h, w, group=g)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_grouped_entry_points_refuse_group_zero():
+    v = torch.zeros((1, 3, 3))
+    t = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="group"):
+        tops.rasterize_winner_grouped(v, t, h=8, w=8, group=0)
+    for kernel in tops.KERNELS:
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel(v, t, 8, 8, group=4 if kernel.grouped else 0)
+        assert kernel.launches == 0

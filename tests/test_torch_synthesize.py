@@ -133,15 +133,21 @@ def test_cpu_only_paths_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         tsyn.Synthesizer(cfg, model, bfm_state, g_state, mesh=object(),
                          device="cpu")
-    synth = tsyn.Synthesizer(cfg, model, bfm_state, g_state,
-                             raster_group=4, device="cpu",
-                             gan_dtype=torch.float32)
-    ident = tsyn.synthetic_identity(model, img_size=cfg.pixrefer.img_size)
-    with pytest.raises(NotImplementedError, match="K4"):
-        synth.render_frames(np.zeros((2, 257), np.float32), ident,
-                            np.zeros((S, S, 3), np.float32),
-                            np.zeros((S, S, 3), np.float32),
-                            np.zeros((S, S, 3), np.float32))
+
+
+def test_raster_group_renders_the_same_frames(pair):
+    """``raster_group=4`` (the grouped raster K4, here its plain version)
+    renders exactly the frames of the flat raster, tail chunk included."""
+    _, tsynth, _, tident = pair
+    coeff, face3d_ref, fg_ref, bgs = _inputs()
+    flat = tsynth.render_frames(coeff, tident, face3d_ref, fg_ref, bgs)
+    tsynth.raster_group = 4
+    try:
+        grouped = tsynth.render_frames(coeff, tident, face3d_ref, fg_ref,
+                                       bgs)
+    finally:
+        tsynth.raster_group = 0
+    np.testing.assert_array_equal(grouped, flat)
 
 
 @pytest.mark.parametrize("fmt", ["rgb8", "yuv444"])

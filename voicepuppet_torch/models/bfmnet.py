@@ -75,14 +75,32 @@ class BFMNet(nn.Module):
                              torch.tensor([-2.0, -2.0, -2.0, -4.0]),
                              persistent=False)
 
+    def encode(self, mfccs, valid_rows: Optional[torch.Tensor] = None):
+        """mfccs [B,T*5,80] -> pre-GRU embeddings [B,T,emb] (the
+        convolutional trunk).  ``valid_rows`` [B] re-zeroes activations
+        past those mel rows at every stage (``mask_time``)."""
+        return leaky_relu(self.rnn_in(self.mfcc_encoder(mfccs, valid_rows)))
+
+    def decode(self, x, ears, seq_len, rnn_state=None,
+               return_rnn_state: bool = False):
+        """GRU + coefficient head.  ``rnn_state``/``return_rnn_state``
+        carry the hidden state across chunks; the recurrence is exactly
+        streamable (pipeline/streaming.py)."""
+        x = self.rnn_module(x, seq_len, initial_state=rnn_state,
+                            return_state=return_rnn_state)
+        if return_rnn_state:
+            x, new_state = x
+        out = self.bfm_coeff_decoder(x, ears * self.ear_scale)
+        if return_rnn_state:
+            return out, new_state
+        return out
+
     def forward(self, ears, mfccs, seq_len, mask_time: bool = False):
         """``mask_time=True`` re-zeroes CNN activations past seq_len*5 at
         every stage, so a bucket-padded run equals the exact-length run
         for frames < seq_len (the serving path)."""
         valid = seq_len * self.mfcc_encoder.pooling[0] if mask_time else None
-        x = leaky_relu(self.rnn_in(self.mfcc_encoder(mfccs, valid)))
-        x = self.rnn_module(x, seq_len)
-        return self.bfm_coeff_decoder(x, ears * self.ear_scale)
+        return self.decode(self.encode(mfccs, valid), ears, seq_len)
 
 
 def init_bfmnet_(model: BFMNet, generator: torch.Generator) -> BFMNet:

@@ -206,7 +206,13 @@ class TFGRUCell(nn.Module):
 class MaskedGRU(nn.Module):
     """``tf.nn.dynamic_rnn(sequence_length=...)`` output semantics over a
     TFGRUCell stack (ref: bfmnet.py:44-69): run over time, zero the
-    outputs past each row's length (JAX ``masked_gru`` at inference)."""
+    outputs past each row's length (JAX ``masked_gru`` at inference).
+
+    ``initial_state`` (one [B, units] tensor per layer) and
+    ``return_state`` carry the recurrence across chunks, exactly: the
+    returned finals are dynamic_rnn's frozen carry, the pre-mask output at
+    t = seq_len-1 (the GRU output is its state), or the initial state for
+    an empty row (JAX ``layers.py:305-355``)."""
 
     def __init__(self, in_dim: int, num_units: int, num_layers: int = 1):
         super().__init__()
@@ -216,17 +222,28 @@ class MaskedGRU(nn.Module):
             self.add_module(f"ScanTFGRUCell_{layer}", TFGRUCell(
                 in_dim if layer == 0 else num_units, num_units))
 
-    def forward(self, inputs, seq_len):
+    def forward(self, inputs, seq_len, initial_state=None,
+                return_state: bool = False):
         b, t, _ = inputs.shape
         x = inputs
         mask = (torch.arange(t, device=x.device)[None, :]
                 < seq_len[:, None])[..., None]
+        finals = []
         for layer in range(self.num_layers):
             cell = getattr(self, f"ScanTFGRUCell_{layer}")
-            h = x.new_zeros((b, self.num_units))
+            h0 = (x.new_zeros((b, self.num_units)) if initial_state is None
+                  else initial_state[layer])
+            h = h0
             outs = []
             for i in range(t):
                 h = cell(h, x[:, i])
                 outs.append(h)
-            x = torch.stack(outs, dim=1) * mask
+            out = torch.stack(outs, dim=1)
+            if return_state:
+                at_len = torch.clamp(seq_len.long() - 1, 0, t - 1)
+                last = out[torch.arange(b, device=x.device), at_len]
+                finals.append(torch.where((seq_len > 0)[:, None], last, h0))
+            x = out * mask
+        if return_state:
+            return x, finals
         return x

@@ -1,21 +1,25 @@
-"""On-card parity gate for the CUDA raster kernel.
+"""On-card parity gate for the CUDA raster kernels.
 
 Counterpart of ``voicepuppet_tpu/ops/raster_selftest.py``.  The quirk
 meshes below are own numpy copies of that module's cases and of the
-x-band cases in ``tests/test_raster.py``: depth ties, a degenerate
-triangle, colour truncation, occlusion order, seam ties, the low-bit-y
-mesh, an edge through pixel centres, a narrow canvas, random soups, and
-triangles taller or wider than 128 px.
+x-band and grouped cases in ``tests/test_raster.py``: depth ties, a
+degenerate triangle, colour truncation, occlusion order, seam ties, the
+low-bit-y mesh, an edge through pixel centres, a narrow canvas, random
+soups, triangles taller or wider than 128 px, a triangle order with no
+screen locality and an in-group depth tie.
 
-``run_selftest(device)`` builds each case on ``device`` and holds the CUDA
-kernel, through every entry point of ``ops/raster.py``, against the plain
-version (``face3d/raster.py``) on the same tensors.  Both evaluate the
-inside test in the same unfused float32 order, so the contract is bit for
-bit on every case, soups included: winner ids, flat depths, image and
-mask.  (Against the sequential spec ``raster_ref``, whose barycentrics are
-float64, the soups and the low-bit-y mesh may differ at pixels whose
-centre lies within ~1e-5 of an edge; tests/test_torch_raster.py holds the
-plain version to that spec on the CPU.)
+``run_selftest(device)`` builds each case on ``device`` and holds every
+CUDA kernel, through every entry point of ``ops/raster.py``, against its
+plain version (``face3d/raster.py``) on the same tensors: the flat kernel
+K1, the grouped K4 at several group sizes, the interpolated-depth K3 and
+its grouped form K5.  Both sides evaluate the inside test and the
+interpolated depth in the same unfused float32 order, so the contract is
+bit for bit on every case, soups included: winner ids, depths, image and
+mask; and K4 must equal K1, K5 equal K3.  (Against the sequential spec
+``raster_ref``, whose barycentrics are float64, the soups and the
+low-bit-y mesh may differ at pixels whose centre lies within ~1e-5 of an
+edge, and interpolated depths at exact ties; tests/test_torch_raster*.py
+hold the plain versions to that spec on the CPU.)
 """
 
 from __future__ import annotations
@@ -168,6 +172,68 @@ CASES: Dict[str, Callable[[], Case]] = {
 }
 
 
+def _scattered_order() -> Case:
+    """Two triangles of one group 60 rows apart (tests/test_raster.py:242):
+    the TPU falls back per triangle; here K4 walks each member's bbox."""
+    v = np.array([[4.0, 2.0, 1.0], [28.0, 2.0, 1.0], [4.0, 10.0, 1.0],
+                  [4.0, 62.0, 2.0], [28.0, 62.0, 2.0], [4.0, 70.0, 2.0]],
+                 np.float32)
+    c = np.array([[200.0]] * 3 + [[50.0]] * 3, np.float32)
+    return v, np.array([[0, 1, 2], [3, 4, 5]], np.int32), c, 96, 96
+
+
+def _in_group_tie() -> Case:
+    """Six overlapping same-depth triangles over two groups of four
+    (tests/test_raster.py:267): the lowest id owns the overlap."""
+    base = np.array([[4.0, 4.0, 1.0], [28.0, 4.0, 1.0], [4.0, 28.0, 1.0]],
+                    np.float32)
+    v = np.concatenate([base + np.array([i * 0.25, 0.0, 0.0], np.float32)
+                        for i in range(6)], axis=0)
+    c = np.concatenate([np.full((3, 1), 40.0 + 10 * i, np.float32)
+                        for i in range(6)], axis=0)
+    return v, np.arange(18, dtype=np.int32).reshape(6, 3), c, 64, 64
+
+
+def _degenerate_occlusion() -> Case:
+    """A zero-area triangle, then a near and a far one
+    (tests/test_raster.py:301)."""
+    v = np.array([
+        [10.0, 10.0, 1.0], [14.0, 10.0, 1.0], [12.0, 10.0, 1.0],  # degen
+        [2.0, 2.0, 5.0], [28.0, 2.0, 5.0], [2.0, 28.0, 5.0],      # near
+        [2.0, 2.0, 1.0], [28.0, 2.0, 1.0], [2.0, 28.0, 1.0],      # far
+    ], np.float32)
+    c = np.array([[90.0]] * 3 + [[200.0]] * 3 + [[50.0]] * 3, np.float32)
+    return v, np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32), c, 32, 32
+
+
+GROUPED_CASES: Dict[str, Callable[[], Case]] = {
+    "grouped_scattered_order": _scattered_order,
+    "grouped_in_group_tie": _in_group_tie,
+    "grouped_degenerate_occlusion": _degenerate_occlusion,
+}
+
+# the interp-depth soup of voicepuppet_tpu/ops/raster_selftest.py:325
+INTERP_CASES: Dict[str, Callable[[], Case]] = {
+    "interp_soup": lambda: _soup_case(3),
+}
+
+# group sizes run through K4/K5 on every case: one member, the serving
+# size, and more members than a warp's lanes (two batches per group)
+GROUP_SIZES = (1, 4, 33)
+
+
+def sphere_uv(num_theta: int, num_phi: int, tex_h: int, tex_w: int
+              ) -> np.ndarray:
+    """Texture coordinates [V, 2] (x, y in texels) for ``synthetic_bfm``'s
+    sphere patch: vertex i*num_phi + j sits at its (phi, theta) grid
+    position, so its triangles double as the texture triangles."""
+    i, j = np.meshgrid(np.arange(num_theta), np.arange(num_phi),
+                       indexing="ij")
+    u = j.reshape(-1) * ((tex_w - 1.0) / (num_phi - 1))
+    v = i.reshape(-1) * ((tex_h - 1.0) / (num_theta - 1))
+    return np.stack([u, v], -1).astype(np.float32)
+
+
 def expect_equal(got: torch.Tensor, want: torch.Tensor, label: str):
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} != "
@@ -179,26 +245,53 @@ def expect_equal(got: torch.Tensor, want: torch.Tensor, label: str):
                              f"elements differ (first at {first})")
 
 
+def _expect_pair(got, want, label: str):
+    for g, w_, part in zip(got, want, ("winner", "depth")):
+        expect_equal(g, w_, f"{label} {part}")
+
+
 def check_against_plain(vertices: torch.Tensor, colors: torch.Tensor,
                         triangles: torch.Tensor, h: int, w: int,
-                        label: str) -> int:
-    """Hold every kernel entry point against the plain version on the same
-    CUDA tensors, bit for bit.  Returns the covered pixel count."""
+                        label: str, groups=GROUP_SIZES) -> int:
+    """Hold every kernel entry point against its plain version on the same
+    CUDA tensors, bit for bit: K1 (flat), K4 at each of ``groups`` (equal
+    to K1), K3 (interpolated depth) and K5 at each of ``groups`` (equal to
+    K3).  Returns the flat raster's covered pixel count."""
     from voicepuppet_torch.face3d import raster as plain
     from voicepuppet_torch.ops import raster as kern
     if vertices.device.type != "cuda":
         raise ValueError("the selftest compares the CUDA kernel: pass "
                          "tensors on a CUDA device")
-    want_w, want_d = plain.rasterize_winner(vertices, triangles, h, w)
-    want_img, want_mask = plain.flat_color_image(want_w, colors, triangles)
-    got_w, got_d = kern.rasterize_winner(vertices, triangles, h, w)
-    expect_equal(got_w, want_w, f"{label} winner")
-    expect_equal(got_d, want_d, f"{label} depth")
-    for name, entry in (("kernel", kern.render_colors_kernel),
-                        ("xband", kern.render_colors_xband)):
-        img, mask = entry(vertices, colors, triangles, h=h, w=w)
+    flat = plain.rasterize_winner(vertices, triangles, h, w)
+    want_img, want_mask = plain.flat_color_image(flat[0], colors, triangles)
+    _expect_pair(kern.rasterize_winner(vertices, triangles, h, w), flat,
+                 f"{label} K1")
+    entries = [("K1 kernel", kern.render_colors_kernel, {}),
+               ("K1 xband", kern.render_colors_xband, {})]
+    for g in groups:
+        grouped = plain.rasterize_winner(vertices, triangles, h, w, group=g)
+        _expect_pair(grouped, flat, f"{label} plain group {g} vs flat")
+        _expect_pair(kern.rasterize_winner_grouped(vertices, triangles, h, w,
+                                                   group=g), grouped,
+                     f"{label} K4 group {g}")
+        entries.append((f"K4 group {g}", kern.render_colors_grouped,
+                        {"group": g}))
+    for name, entry, kw in entries:
+        img, mask = entry(vertices, colors, triangles, h=h, w=w, **kw)
         expect_equal(mask, want_mask, f"{label} {name} mask")
         expect_equal(img, want_img, f"{label} {name} image")
+
+    interp = plain.rasterize_winner_interp(vertices, triangles, h, w)
+    _expect_pair(kern.rasterize_winner_interp(vertices, triangles, h, w),
+                 interp, f"{label} K3")
+    for g in groups:
+        grouped = plain.rasterize_winner_interp(vertices, triangles, h, w,
+                                                group=g)
+        _expect_pair(grouped, interp, f"{label} plain interp group {g} vs "
+                     "per-triangle")
+        _expect_pair(kern.rasterize_winner_interp(vertices, triangles, h, w,
+                                                  group=g), grouped,
+                     f"{label} K5 group {g}")
     return int((want_mask > 0).sum())
 
 
@@ -206,7 +299,7 @@ def run_selftest(device="cuda") -> Dict[str, int]:
     """Every quirk case on ``device``: {case: covered pixels}.  Raises
     AssertionError on the first difference."""
     report = {}
-    for name, make in CASES.items():
+    for name, make in {**CASES, **GROUPED_CASES, **INTERP_CASES}.items():
         v, t, c, h, w = make()
         vt = torch.as_tensor(v[None], device=device).contiguous()
         ct = torch.as_tensor(c[None], device=device).contiguous()

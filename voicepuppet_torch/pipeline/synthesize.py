@@ -15,6 +15,10 @@ generator's batch-stat BN and so shape the tail frames.  The drain copies
 each packed chunk to pinned host memory on a side stream and unpacks it
 with numpy while the card computes the next chunk.
 
+``raster_group`` > 0 rasterizes with the grouped kernel K4, whose output
+equals the flat kernel's; the streaming driver (``pipeline/streaming.py``)
+reuses :meth:`Synthesizer.frame_program_for` and the fetch helpers.
+
 Not ported yet (ROADMAP.md Queue 1): ``SynthesisAssets.from_npz`` /
 ``from_checkpoints`` / ``from_tf_checkpoints``, the R-Net/detector identity
 path, the mp4 mux, multi-device ``mesh`` options.
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
@@ -178,7 +183,10 @@ class Synthesizer:
     JAX trees; ``SynthesisAssets.init_trees`` makes fresh ones).
     ``gan_dtype``: the generator's conv dtype — bfloat16 serves on the
     card; pass ``torch.float32`` for CPU parity runs.
-    ``transfer_format``: only the reference's default, ``"yuv420"``."""
+    ``transfer_format``: only the reference's default, ``"yuv420"``.
+    ``raster_group``: > 0 selects the grouped raster kernel K4 (groups of
+    that many consecutive triangles), 0 the flat kernel K1; both give the
+    same frames."""
 
     def __init__(self, cfg: Config, face_model,
                  bfmnet_state: Mapping[str, torch.Tensor],
@@ -212,6 +220,7 @@ class Synthesizer:
         self.raster_bb = raster_bb
         self.raster_group = int(raster_group)
         self.img_size = cfg.pixrefer.img_size
+        self._side = None         # the d2h copy stream, made at first use
 
     # ---- program 1: audio -> expression coefficients (whole clip) ----
     @staticmethod
@@ -256,6 +265,13 @@ class Synthesizer:
         paste = _paste_geometry(out_hw, identity.center_x,
                                 identity.center_y, tx, ty, self.img_size)
         return out_hw, paste, identity.colors_bgr
+
+    def frame_program_for(self, identity: Identity):
+        """The frame program bound to an identity's paste geometry:
+        ``(coeff, angles, bg_pool, bg_idx, face3d_ref, fg_ref) -> packed``
+        (JAX ``frame_program_for``; nothing is compiled here)."""
+        return functools.partial(self.frame_program,
+                                 self.frame_geometry(identity))
 
     def frame_program(self, geometry, coeff, angles, bg_pool, bg_idx,
                       face3d_ref, fg_ref) -> torch.Tensor:
@@ -331,13 +347,11 @@ class Synthesizer:
 
         frames = np.zeros((t, self.img_size, self.img_size, 3), np.uint8)
         c = self.chunk
-        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         pending = collections.deque()
 
-        def drain(start, n, host, done):
-            if done is not None:
-                done.synchronize()
-            frames[start:start + n] = self.fetch_frames(host.numpy(), n)
+        def drain():
+            start, n, fetch = pending.popleft()
+            frames[start:start + n] = self.finish_fetch(fetch, n)
 
         for start in range(0, t, c):
             n = min(c, t - start)
@@ -350,25 +364,37 @@ class Synthesizer:
             idx_c[:n] = bg_idx_all[start:start + n]
             out = self.frame_program(geometry, coeff_c, ang_c, bg_pool,
                                      idx_c, face3d_ref, fg_ref)
-            if side is None:
-                pending.append((start, n, out, None))
-            else:
-                # d2h on a side stream into pinned memory: chunk k's copy
-                # overlaps chunk k+1's compute
-                host = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
-                    host.copy_(out, non_blocking=True)
-                out.record_stream(side)
-                done = torch.cuda.Event()
-                done.record(side)
-                pending.append((start, n, host, done))
+            pending.append((start, n, self.start_fetch(out)))
             while len(pending) > 2:
-                drain(*pending.popleft())
+                drain()
         while pending:
-            drain(*pending.popleft())
+            drain()
         return frames
+
+    def start_fetch(self, out: torch.Tensor):
+        """Start the device-to-host copy of a packed chunk; returns the
+        handle :meth:`finish_fetch` takes.  On a CUDA device the copy runs
+        into pinned memory on a side stream, so chunk k's copy overlaps
+        chunk k+1's compute."""
+        if out.device.type != "cuda":
+            return out, None
+        if self._side is None:
+            self._side = torch.cuda.Stream(out.device)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        self._side.wait_stream(torch.cuda.current_stream(out.device))
+        with torch.cuda.stream(self._side):
+            host.copy_(out, non_blocking=True)
+        out.record_stream(self._side)
+        done = torch.cuda.Event()
+        done.record(self._side)
+        return host, done
+
+    def finish_fetch(self, fetch, n: int) -> np.ndarray:
+        """Wait for a :meth:`start_fetch` copy -> [n,S,S,3] uint8 RGB."""
+        host, done = fetch
+        if done is not None:
+            done.synchronize()
+        return self.fetch_frames(host.numpy(), n)
 
     def fetch_frames(self, packed: np.ndarray, n: int) -> np.ndarray:
         """Host chunk of packed YUV 4:2:0 -> [n,S,S,3] uint8 RGB."""
