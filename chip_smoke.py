@@ -8,8 +8,8 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
 
   1. device and build   print the card's name and power limit; build the
                         raster kernels (csrc/raster.cu: flat K1, grouped K4,
-                        interpolated K3 and K5) into build/ and print ptxas's
-                        registers and spills.
+                        interpolated K3 and K5, the probes X1-X3) into
+                        build/ and print ptxas's registers and spills.
   2. raster parity      every CUDA kernel against its plain PyTorch version,
                         bit for bit, through every entry point: the quirk,
                         grouped and interp meshes of ops/raster_selftest.py,
@@ -40,7 +40,17 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         K5 equal to K3.
   6. kernel times       each kernel beside its plain version and its bound,
                         at the shapes its path gives it.
-  7. reference checks   the card against the port on the CPU (float32
+  7. probe path         the raster A/B probes (ops/raster_probes.py): the
+                        probe selftest on every quirk, grouped and interp
+                        case and a band-fitting one; at the JAX profile
+                        scripts' shapes (B = 16 at 224², the 189² and 192²
+                        meshes) each probe bit for bit against its plain
+                        version, X2 against K1 at four settings, X1 against
+                        K1 off degenerate winners; then every profile entry
+                        point (voicepuppet_torch/experiments/) once at
+                        K = 2 and one round, where every probe must launch;
+                        probe times beside K1's, plain and bound.
+  8. reference checks   the card against the port on the CPU (float32
                         everywhere): the full-width expression coefficients,
                         and whole frames at a small size (ngf 8, 256²); the
                         served bf16 generator against its float32 weights on
@@ -54,6 +64,7 @@ as the last line {"ok": true, "device": {...}}.  Exits nonzero, printing
 no result, when there is no CUDA device or no voicepuppet_torch beside it.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -75,6 +86,7 @@ STREAM_PIECE = 3200         # 0.2 s of 16 kHz pcm per feed
 STREAM_COEFF_BAND = 2e-2    # interior frames, tests/test_torch_streaming.py
 STREAM_INTERIOR = slice(16, 48)
 TEX_SIZE = 256
+PROBE_BATCH = 16            # the JAX profile scripts' B
 # bf16 generator vs float32, mean |diff| in 8-bit codes at full width: the
 # served path read 0.145 on an H100, with the BN moments in bf16 0.227
 GEN_BF16_MEAN_CODES = 0.185
@@ -171,6 +183,36 @@ def interp_bound_ms(verts, tris, h, w):
             else "operations", nbytes, ops)
 
 
+def probe_bound_ms(verts, tris, h, w, out_bytes, live, band=None):
+    """Least time for one raster probe call: the triangles and each vertex
+    some triangle uses, read once, and the probe's own outputs
+    (``out_bytes`` per pixel) written once, over HBM bandwidth; against the
+    float32 operations per ``live`` [B,F] triangle and per pixel of its
+    clipped bbox (``band`` = (first row [B,F], rows): only the rows inside
+    X3's band) over the float32 peak."""
+    import torch
+    b = verts.shape[0]
+    nbytes = (b * torch.unique(tris).numel() * 3 * 4 + tris.numel() * 4
+              + b * h * w * out_bytes)
+    corners = verts[:, tris.long()]                     # [B,F,3,3]
+    xs, ys = corners[..., 0], corners[..., 1]
+    x0 = torch.clamp(torch.ceil(xs.amin(-1)), min=0.0)
+    x1 = torch.clamp(torch.floor(xs.amax(-1)), max=w - 1.0)
+    y0 = torch.clamp(torch.ceil(ys.amin(-1)), min=0.0)
+    y1 = torch.clamp(torch.floor(ys.amax(-1)), max=h - 1.0)
+    if band is not None:
+        start, rows = band
+        y0 = torch.maximum(y0, start.float())
+        y1 = torch.minimum(y1, start.float() + (rows - 1))
+    area = (x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)
+    ops = (RASTER_OPS_PER_TRIANGLE * int(live.sum())
+           + RASTER_OPS_PER_BBOX_PIXEL * int((area * live).sum()))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
 def bn_forward_bf16_moments(self, x):
     """Negative control for the generator's precision gate: StatelessBatchNorm
     with its moments and normalisation taken in bfloat16, which the served
@@ -216,18 +258,27 @@ def main():
     from voicepuppet_torch.models import pixrefer as px
     from voicepuppet_torch import ops as tops
     from voicepuppet_torch.ops import KERNELS, render_colors_auto
+    from voicepuppet_torch.ops import raster_probes as probes
     from voicepuppet_torch.ops import raster_selftest
     from voicepuppet_torch.ops.raster import LIBRARY
+    from voicepuppet_torch.experiments import _common as probe_common
+    from voicepuppet_torch.experiments import (profile_raster,
+                                               profile_raster2,
+                                               profile_raster3,
+                                               profile_raster_grouped,
+                                               profile_raster_regacc)
     from voicepuppet_torch.pipeline import streaming
     from voicepuppet_torch.pipeline import synthesize as syn
     from voicepuppet_torch.pipeline.align import head_sway_angles
 
+    every_kernel = KERNELS + probes.PROBE_KERNELS
+
     def reset_counts():
-        for k in KERNELS:
+        for k in every_kernel:
             k.launches = 0
 
     def counts():
-        return {k.name: k.launches for k in KERNELS}
+        return {k.name: k.launches for k in every_kernel}
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -239,7 +290,8 @@ def main():
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     LIBRARY.function()
-    log(f"build: raster kernels (K1, K4, K3, K5: csrc/raster.cu) in "
+    log(f"build: raster kernels (K1, K4, K3, K5 and the probes X1-X3: "
+        f"csrc/raster.cu) in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in LIBRARY.build_log.splitlines():
         if ("registers" in line or "spill" in line
@@ -544,7 +596,133 @@ def main():
         f"{inbytes} B, {iops} ops); render_texture_kernel total "
         f"{tex_ms:.4f} ms; {card}")
 
-    # ---- 7. the card against the port on the CPU ------------------------
+    # ---- 7. the probe path: X1-X3 and the A/B profile entry points ------
+    t0 = time.perf_counter()
+    probe_report = raster_selftest.run_probe_selftest(dev)
+    torch.cuda.synchronize()
+    log(f"probe parity: {len(probe_report)} cases bit-exact probe == plain "
+        f"(X1 both modes, X2 at fb x unroll {probes.UNROLLS}, X3 at "
+        f"{raster_selftest.REGACC_SETTINGS}; X1 == K1 off degenerate "
+        f"winners; X3 == K1 on band_fitting) in "
+        f"{time.perf_counter() - t0:.2f} s; pixels K1 gives degenerate "
+        f"triangles: {json.dumps(probe_report)}")
+
+    def probe_args(mesh):
+        return argparse.Namespace(device=dev, batch=PROBE_BATCH, mesh=mesh)
+
+    with torch.inference_mode():
+        pv, ptri = probe_common.probe_mesh(probe_args(189), 0, 1)
+        rv, rtri = probe_common.probe_mesh(probe_args(192), 7, 11)
+        pk1 = plain.rasterize_winner(pv, ptri, 224, 224)
+        raster_selftest.expect_equal(tops.rasterize_winner(pv, ptri, 224,
+                                                           224)[0],
+                                     pk1[0], "probe mesh K1 winner")
+        x1_want = plain.rasterize_winner_inside_only(pv, ptri, 224, 224)
+        x1 = probes.raster_b(pv, ptri, 224, 224)
+        x1_depth = probes.raster_b(pv, ptri, 224, 224, winner=False)
+        torch.cuda.synchronize()
+        for got, want, part in ((x1[0], x1_want[0], "winner"),
+                                (x1[1], x1_want[1], "depth"),
+                                (x1_depth, x1_want[1], "depth-only")):
+            raster_selftest.expect_equal(got, want, f"probe mesh X1 {part}")
+        x1_deg = raster_selftest.expect_inside_only_matches_k1(
+            x1[0], pk1[0], pv, ptri, "probe mesh")
+        x1_err = float((x1[1] - x1_want[1]).abs().max())
+        x2_err = 0.0
+        for fb, unroll in profile_raster3.SETTINGS:
+            x2 = probes.raster_u(pv, ptri, 224, 224, fb=fb, unroll=unroll)
+            torch.cuda.synchronize()
+            raster_selftest.expect_equal(x2[0], pk1[0],
+                                         f"X2 fb {fb} unroll {unroll} winner")
+            raster_selftest.expect_equal(x2[1], pk1[1],
+                                         f"X2 fb {fb} unroll {unroll} depth")
+            x2_err = max(x2_err, float((x2[1] - pk1[1]).abs().max()))
+        rk1 = plain.rasterize_winner(rv, rtri, 224, 224)
+        x3_err, x3_off_k1 = 0.0, {}
+        for win, fb in raster_selftest.REGACC_SETTINGS:
+            want = plain.rasterize_winner_banded(rv, rtri, 224, 224, win,
+                                                 512 // fb)
+            x3 = probes.rasterize_regacc(rv, rtri, 224, 224, win=win, fb=fb)
+            torch.cuda.synchronize()
+            raster_selftest.expect_equal(x3[0], want[0],
+                                         f"X3 win {win} fb {fb} winner")
+            raster_selftest.expect_equal(x3[1], want[1],
+                                         f"X3 win {win} fb {fb} depth")
+            x3_err = max(x3_err, float((x3[1] - want[1]).abs().max()))
+            x3_off_k1[f"win{win}_fb{fb}"] = int((x3[0] != rk1[0]).sum())
+    log(f"probe parity: B={PROBE_BATCH} 224², {ptri.shape[0]} triangles: "
+        f"X1 == plain in both modes, == K1 off degenerate winners ({x1_deg} "
+        f"px won by degenerate triangles in K1); X2 == K1 at (fb, unroll) "
+        f"{profile_raster3.SETTINGS}; {rtri.shape[0]} triangles: X3 == "
+        f"plain at {raster_selftest.REGACC_SETTINGS}, pixels off K1 "
+        f"{json.dumps(x3_off_k1)}")
+
+    # every profile entry point once at reduced rounds: each probe launches
+    reset_counts()
+    t0 = time.perf_counter()
+    for mod in (profile_raster, profile_raster2, profile_raster3,
+                profile_raster_regacc, profile_raster_grouped):
+        mod.main(["--rounds", "1", "--k", "2"])
+    torch.cuda.synchronize()
+    probe_launched = counts()
+    log(f"probe path: the five profile entry points (K = 2, one round) in "
+        f"{time.perf_counter() - t0:.2f} s, launches "
+        f"{json.dumps(probe_launched)}")
+    if not all(probe_launched[k.name] > 0 for k in probes.PROBE_KERNELS):
+        raise AssertionError(f"probe path launches {probe_launched}: every "
+                             "probe must launch")
+
+    with torch.inference_mode():
+        deg = plain.degenerate(pv, ptri)
+        p_live = pv[:, ptri.long(), 2].sum(-1) / 3.0 > -99999.0
+        r_live = rv[:, rtri.long(), 2].sum(-1) / 3.0 > -99999.0
+        x1_ms = cuda_ms(lambda: probes.raster_b(pv, ptri, 224, 224), 50, 5)
+        x1d_ms = cuda_ms(lambda: probes.raster_b(pv, ptri, 224, 224,
+                                                 winner=False), 50, 5)
+        x1p_ms = cuda_ms(lambda: plain.rasterize_winner_inside_only(
+            pv, ptri, 224, 224), 5, 1)
+        pk1_ms = cuda_ms(lambda: tops.rasterize_winner(pv, ptri, 224, 224),
+                         50, 5)
+        x2_ms = {f"U{u}_fb{fb}": cuda_ms(lambda fb=fb, u=u: probes.raster_u(
+            pv, ptri, 224, 224, fb=fb, unroll=u), 50, 5)
+            for fb, u in profile_raster3.SETTINGS}
+        x2p_ms = cuda_ms(lambda: plain.rasterize_winner(pv, ptri, 224, 224),
+                         5, 1)
+        rk1_ms = cuda_ms(lambda: tops.rasterize_winner(rv, rtri, 224, 224),
+                         50, 5)
+        x3_ms = {f"win{win}_fb{fb}": cuda_ms(
+            lambda win=win, fb=fb: probes.rasterize_regacc(
+                rv, rtri, 224, 224, win=win, fb=fb), 50, 5)
+            for win, fb in raster_selftest.REGACC_SETTINGS}
+        x3p_ms = cuda_ms(lambda: plain.rasterize_winner_banded(
+            rv, rtri, 224, 224, 16, 64), 5, 1)
+        x1_bound = probe_bound_ms(pv, ptri, 224, 224, 8, p_live & ~deg)
+        x1d_bound = probe_bound_ms(pv, ptri, 224, 224, 4, p_live & ~deg)
+        x2_bound = probe_bound_ms(pv, ptri, 224, 224, 8, p_live)
+        starts = plain.band_origins(rv, rtri, 224, 16, 64)
+        x3_bound = probe_bound_ms(
+            rv, rtri, 224, 224, 8, r_live,
+            band=(starts[:, torch.arange(rtri.shape[0], device=dev) // 64],
+                  16))
+    entries_p = PROBE_BATCH * ptri.shape[0]
+    entries_r = PROBE_BATCH * rtri.shape[0]
+    log(f"probe times B={PROBE_BATCH} 224², ms (ns per triangle-frame): "
+        f"K1 {pk1_ms:.4f} ({pk1_ms / entries_p * 1e6:.3f}); X1 winner "
+        f"{x1_ms:.4f} ({x1_ms / entries_p * 1e6:.3f}), depth-only "
+        f"{x1d_ms:.4f} ({x1d_ms / entries_p * 1e6:.3f}), plain "
+        f"{x1p_ms:.4f}, bound {x1_bound[0]:.4f} / depth-only "
+        f"{x1d_bound[0]:.4f} ({x1_bound[1]}: {x1_bound[2]} B, {x1_bound[3]} "
+        f"ops); X2 {json.dumps({k: round(v, 4) for k, v in x2_ms.items()})}"
+        f", plain {x2p_ms:.4f}, bound {x2_bound[0]:.4f}; {card}")
+    log(f"probe times B={PROBE_BATCH} 224², {rtri.shape[0]} triangles: K1 "
+        f"{rk1_ms:.4f} ms ({rk1_ms / entries_r * 1e6:.3f} ns/tri-frame); X3 "
+        f"{json.dumps({k: round(v, 4) for k, v in x3_ms.items()})} ms, "
+        f"plain (win 16 fb 8) {x3p_ms:.4f}, bound {x3_bound[0]:.4f} "
+        f"({x3_bound[1]}: {x3_bound[2]} B, {x3_bound[3]} ops); decision "
+        f"K1 / X3 win16 fb8 = {rk1_ms / x3_ms['win16_fb8']:.3f} "
+        f"(tile binning only at >= 1.3); {card}")
+
+    # ---- 8. the card against the port on the CPU ------------------------
     cpu_bfm, cpu_g = trees
     cpu_synth = syn.Synthesizer(cfg, face_model, cpu_bfm, cpu_g,
                                 chunk=CHUNK, gan_dtype=torch.float32,
@@ -621,11 +799,12 @@ def main():
         f"{mean:.3g}, share > 1 code {over1:.3g}, max {dmax} "
         f"(bands 0.01, 1e-3)")
 
+    pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": "voicepuppet_torch/csrc/raster.cu",
-        "replaces": f"voicepuppet_tpu/ops/raster_pallas.py:{line}",
+        "replaces": replaces,
         "launches": n,
         "max_abs_err": err,
         "ms": ms,
@@ -633,16 +812,25 @@ def main():
         "bound_ms": bms,
         "bound_by": bby,
         "library_ms": None,
-    } for name, line, n, err, ms, pms, bms, bby in (
-        ("raster_flat", 126, launches, max_abs_err, k_ms, p_ms, bound,
-         bound_by),
-        ("raster_grouped", 337, k4_launches, k4_err, k4_ms, p4g_ms, bound,
-         bound_by),
-        ("raster_interp", 695, tex_launched["raster_interp"], k3_err, k3_ms,
-         p3_ms, ibound, ibound_by),
-        ("raster_interp_grouped", 769,
+    } for name, replaces, n, err, ms, pms, bms, bby in (
+        ("raster_flat", f"{pallas}:126", launches, max_abs_err, k_ms, p_ms,
+         bound, bound_by),
+        ("raster_grouped", f"{pallas}:337", k4_launches, k4_err, k4_ms,
+         p4g_ms, bound, bound_by),
+        ("raster_interp", f"{pallas}:695", tex_launched["raster_interp"],
+         k3_err, k3_ms, p3_ms, ibound, ibound_by),
+        ("raster_interp_grouped", f"{pallas}:769",
          tex_launched["raster_interp_grouped"], k5_err, k5_ms, p5_ms, ibound,
-         ibound_by))]
+         ibound_by),
+        ("probe_inside_only", "experiments/profile_raster2.py:49",
+         probe_launched["probe_inside_only"], x1_err, x1_ms, x1p_ms,
+         x1_bound[0], x1_bound[1]),
+        ("probe_unroll", "experiments/profile_raster3.py:35",
+         probe_launched["probe_unroll"], x2_err, x2_ms["U2_fb8"], x2p_ms,
+         x2_bound[0], x2_bound[1]),
+        ("probe_band_regacc", "experiments/profile_raster_regacc.py:49",
+         probe_launched["probe_band_regacc"], x3_err, x3_ms["win16_fb8"],
+         x3p_ms, x3_bound[0], x3_bound[1]))]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

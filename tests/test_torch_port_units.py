@@ -270,6 +270,29 @@ def test_reconstruct_rotation_matches_jax():
                                    atol=atol, err_msg=name)
 
 
+def test_reconstruct_matches_jax():
+    """The decode with the coefficients' own pose (the raster probes'
+    meshes) on synthetic_bfm(12, 12), within the bands of
+    test_reconstruct_rotation_matches_jax."""
+    model = jbfm.synthetic_bfm(num_theta=12, num_phi=12, seed=2)
+    coeff = jbfm.demo_coeff(model, batch=3, seed=4)
+    want = jmorph.reconstruct(jnp.asarray(coeff), jmorph.device_bfm(model),
+                              224.0)
+    got = tmorph.reconstruct(_t(coeff), tmorph.device_bfm(model, "cpu"),
+                             224.0)
+    for name, atol in (("face_shape", 1e-5), ("face_projection", 1e-4),
+                       ("z_buffer", 1e-5), ("face_color", 2e-3),
+                       ("landmarks_2d", 1e-4), ("face_texture", 2e-3)):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   atol=atol, err_msg=name)
+    # the shape itself stays unrotated: only reconstruct_rotation turns it
+    np.testing.assert_allclose(
+        got.face_shape.numpy(),
+        tmorph.shape_formation(_t(coeff[:, :80]), _t(coeff[:, 80:144]),
+                               tmorph.device_bfm(model, "cpu")).numpy())
+
+
 def test_generator_and_composite_match_jax():
     _, g = jax_trees()
     jcfg = jax_cfg()

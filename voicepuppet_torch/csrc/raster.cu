@@ -9,7 +9,9 @@
 //      per-pixel depth (1-u-v)*z0 + v*z1 + u*z2, and a 2-px canvas border
 //      that passes the inside test unconditionally inside the clipped bbox
 //      (mesh_core.cpp:108-166, 148);
-//   K5 _raster_kernel_interp_grouped: K3 merged per group, as K4 is K1.
+//   K5 _raster_kernel_interp_grouped: K3 merged per group, as K4 is K1;
+// and the raster A/B probes of experiments/ (X1 _kernel_b, X2
+// _kernel_unroll, X3 _regacc_kernel; near the end, behind vp_raster_probe).
 // The TPU kernels walk triangles in index order over a VMEM-resident depth
 // window; windows, 8-aligned origins, frame interleave and 128-lane x-bands
 // are TPU layout devices and none of them carries over.  What they compute
@@ -321,6 +323,201 @@ __global__ void resolve_kernel(const unsigned long long* __restrict__ zbuf,
   }
 }
 
+// ---- the raster A/B probes (experiments/profile_raster{2,3,_regacc}.py) --
+// Each differs from K1 only in what it probes; all share tri_setup,
+// pixel_key, orderable and the resolve pass, so their outputs are the plain
+// versions' in face3d/raster.py bit for bit.  Bound: the vertices and
+// triangles read once and the probe's own outputs written once, bytes-bound
+// like K1 (about 4.2 us for B = 16 frames of the 189² mesh at 224²;
+// chip_smoke.py computes it from each run's inputs).  They are simple by
+// design: a probe measures one change against K1, not a tuned kernel.
+
+// X1 (_kernel_b, profile_raster2.py:49): K1 with degenerate triangles
+// (inv_deno == 0) dropped at setup, as _trim_table's depth -1e10 does.
+// DEPTH_ONLY stores the key's depth half with a 32-bit atomicMax into a
+// [B,H,W] uint32 buffer: the TPU probe's "lower-bound signal for store
+// cost" (profile_raster2.py:7) as the 64-bit key's cost against a
+// depth-only store.
+template <bool DEPTH_ONLY>
+__global__ void inside_only_kernel(const float* __restrict__ verts,
+                                   const int* __restrict__ tris, int B,
+                                   int V, int F, int H, int W,
+                                   void* __restrict__ zbuf) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)B * F) return;
+  const int b = (int)(idx / F);
+  const int f = (int)(idx - (long long)b * F);
+  Tri t;
+  if (!tri_setup<false>(verts + (size_t)b * V * 3, tris, f, V, H, W, t) ||
+      t.inv == 0.0f)
+    return;
+  const size_t base = (size_t)b * H * W;
+  for (int y = t.y0; y <= t.y1; ++y) {
+    for (int x = t.x0; x <= t.x1; ++x) {
+      const unsigned long long key = pixel_key<false>(t, x, y, H, W);
+      if (!key) continue;
+      const size_t p = base + (size_t)y * W + x;
+      if (DEPTH_ONLY)
+        atomicMax((unsigned int*)zbuf + p, (unsigned int)(key >> 32));
+      else
+        atomicMax((unsigned long long*)zbuf + p, key);
+    }
+  }
+}
+
+__global__ void depth_resolve_kernel(const unsigned int* __restrict__ zbuf,
+                                     long long n, float* __restrict__ depth) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const unsigned int o = zbuf[idx];
+  depth[idx] = o ? from_orderable(o) : kDepthInit;
+}
+
+// X2 (_kernel_unroll, profile_raster3.py:35): K1 with each thread taking
+// TPT consecutive triangles in each of FPT consecutive frames, the
+// counterparts of the TPU's triangle unroll and frame interleave fb.  The
+// atomicMax key makes the output K1's at every setting.
+template <int TPT, int FPT>
+__global__ void unroll_kernel(const float* __restrict__ verts,
+                              const int* __restrict__ tris, int B, int V,
+                              int F, int H, int W,
+                              unsigned long long* __restrict__ zbuf) {
+  const long long ntg = (F + (long long)TPT - 1) / TPT;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ntg * ((B + (long long)FPT - 1) / FPT)) return;
+  const long long fg = idx / ntg;
+  const long long tg = idx - fg * ntg;
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) {
+    const long long f = tg * TPT + u;
+#pragma unroll
+    for (int j = 0; j < FPT; ++j) {
+      const long long b = fg * FPT + j;
+      Tri t;
+      if (f >= F || b >= B ||
+          !tri_setup<false>(verts + (size_t)b * V * 3, tris, (int)f, V, H,
+                            W, t))
+        continue;
+      unsigned long long* zb = zbuf + (size_t)b * H * W;
+      for (int y = t.y0; y <= t.y1; ++y) {
+        for (int x = t.x0; x <= t.x1; ++x) {
+          const unsigned long long key = pixel_key<false>(t, x, y, H, W);
+          if (key) atomicMax(zb + (size_t)y * W + x, key);
+        }
+      }
+    }
+  }
+}
+
+// X3's band start row: triangle f's aligned window origin
+// clip(floor(y_min/8)*8, 0, H-win), y_min = max(ceil(min y), 0)
+// (raster_pallas.py:106-111), computed apart from tri_setup because the
+// band comes from the chunk's first triangle even when that triangle draws
+// nothing.  NaN gives row 0, as XLA's float-to-int32 conversion does.
+__device__ __forceinline__ int band_origin(const float* __restrict__ vb,
+                                           const int* __restrict__ tris,
+                                           int f, int V, int H, int win) {
+  const int i0 = tris[3 * f], i1 = tris[3 * f + 1], i2 = tris[3 * f + 2];
+  if ((unsigned)i0 >= (unsigned)V || (unsigned)i1 >= (unsigned)V ||
+      (unsigned)i2 >= (unsigned)V)
+    return 0;
+  const float a = vb[3 * i0 + 1], b = vb[3 * i1 + 1], c = vb[3 * i2 + 1];
+  if (isnan(a) || isnan(b) || isnan(c)) return 0;
+  const float ymn = fmaxf(ceilf(fminf(fminf(a, b), c)), 0.0f);
+  const float y0 = __fmul_rn(floorf(__fmul_rn(ymn, 0.125f)), 8.0f);
+  return (int)fminf(y0, (float)(H - win));
+}
+
+// X3 (_regacc_kernel, profile_raster_regacc.py:49): one block per (frame,
+// chunk of `chunk` consecutive triangles).  The chunk's band of win rows
+// lives in dynamic shared memory as win x W uint64 keys (28,672 B at win
+// 16, W 224), starting at 0; each thread takes triangles of the chunk,
+// walks its bbox rows inside the band and makes a shared-memory 64-bit
+// atomicMax per fragment; after __syncthreads() the block flushes each
+// non-zero key with one global atomicMax.  The max of the keys is the
+// TPU's strict '>' in id order within the chunk and its (max depth, min id)
+// flush across chunks.  This is the shared-memory z-buffer form that a
+// tile-binned raster would take, with the TPU probe's synthetic band
+// assignment: fragments outside the band are dropped.
+__global__ void band_regacc_kernel(const float* __restrict__ verts,
+                                   const int* __restrict__ tris, int B,
+                                   int V, int F, int H, int W, int win,
+                                   int chunk,
+                                   unsigned long long* __restrict__ zbuf) {
+  extern __shared__ unsigned long long band[];
+  const int nc = (F + chunk - 1) / chunk;
+  const int b = blockIdx.x / nc;
+  const int c = blockIdx.x - b * nc;
+  const float* vb = verts + (size_t)b * V * 3;
+  const int n = win * W;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) band[i] = 0ull;
+  const int y0 = band_origin(vb, tris, c * chunk, V, H, win);
+  __syncthreads();
+  const int f1 = min(F, (c + 1) * chunk);
+  for (int f = c * chunk + threadIdx.x; f < f1; f += blockDim.x) {
+    Tri t;
+    if (!tri_setup<false>(vb, tris, f, V, H, W, t)) continue;
+    const int ya = max(t.y0, y0), yb = min(t.y1, y0 + win - 1);
+    for (int y = ya; y <= yb; ++y) {
+      for (int x = t.x0; x <= t.x1; ++x) {
+        const unsigned long long key = pixel_key<false>(t, x, y, H, W);
+        if (key) atomicMax(band + (y - y0) * W + x, key);
+      }
+    }
+  }
+  __syncthreads();
+  unsigned long long* zb = zbuf + (size_t)b * H * W + (size_t)y0 * W;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned long long key = band[i];
+    if (key) atomicMax(zb + i, key);
+  }
+}
+
+template <int TPT>
+cudaError_t launch_unroll_fpt(int fpt, const float* v, const int* t, int B,
+                              int V, int F, int H, int W,
+                              unsigned long long* z, cudaStream_t s) {
+  const int threads = 256;
+  const long long nt = ((F + (long long)TPT - 1) / TPT) *
+                       ((B + (long long)fpt - 1) / fpt);
+  const unsigned blocks = (unsigned)((nt + threads - 1) / threads);
+  switch (fpt) {
+    case 1:
+      unroll_kernel<TPT, 1><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
+                                                       z);
+      break;
+    case 2:
+      unroll_kernel<TPT, 2><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
+                                                       z);
+      break;
+    case 4:
+      unroll_kernel<TPT, 4><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
+                                                       z);
+      break;
+    case 8:
+      unroll_kernel<TPT, 8><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
+                                                       z);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_unroll(int tpt, int fpt, const float* v, const int* t,
+                          int B, int V, int F, int H, int W,
+                          unsigned long long* z, cudaStream_t s) {
+  switch (tpt) {
+    case 1: return launch_unroll_fpt<1>(fpt, v, t, B, V, F, H, W, z, s);
+    case 2: return launch_unroll_fpt<2>(fpt, v, t, B, V, F, H, W, z, s);
+    case 4: return launch_unroll_fpt<4>(fpt, v, t, B, V, F, H, W, z, s);
+    case 8: return launch_unroll_fpt<8>(fpt, v, t, B, V, F, H, W, z, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+constexpr int kMaxSharedBytes = 232448;   // 227 KB: an H100 block's most
+
 template <bool INTERP>
 cudaError_t launch_pass1(const float* vertices, const int* triangles, int B,
                          int V, int F, int H, int W, int group,
@@ -373,6 +570,78 @@ extern "C" int vp_raster(const float* vertices, const int* triangles,
     resolve_kernel<<<(unsigned)((np + threads - 1) / threads), threads, 0,
                      s>>>(z, triangles, colors, B, V, F, C, H, W, winner,
                           depth, image, mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The raster A/B probes; vertices [B,V,3] f32, triangles [F,3] i32.
+//   probe 0  X1 inside-only: a = 1 for winner + depth (zbuf [B,H,W] u64),
+//            0 for depth only (zbuf [B,H,W] u32, winner null);
+//   probe 1  X2 unroll: a = triangles per thread, b = frames per thread,
+//            each in {1, 2, 4, 8} (zbuf u64);
+//   probe 2  X3 band regacc: a = band rows win in [1, H], b = chunk >= 1,
+//            win * W * 8 bytes of shared memory at most 227 KB (zbuf u64).
+// winner [B,H,W] i32 or null, depth [B,H,W] f32.  Launches on `stream`,
+// returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for a
+// setting outside those ranges, before any launch).
+extern "C" int vp_raster_probe(const float* vertices, const int* triangles,
+                               int B, int V, int F, int H, int W, int probe,
+                               int a, int b, void* zbuf, int* winner,
+                               float* depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long np = (long long)B * H * W;
+  const int threads = 256;
+  const unsigned pblocks = (unsigned)((np + threads - 1) / threads);
+  const bool depth_only = probe == 0 && a == 0;
+  const size_t smem = probe == 2 ? sizeof(unsigned long long) * (size_t)a * W
+                                 : 0;
+  if (probe < 0 || probe > 2 ||
+      (probe == 1 && !((a == 1 || a == 2 || a == 4 || a == 8) &&
+                       (b == 1 || b == 2 || b == 4 || b == 8))) ||
+      (probe == 2 && (a < 1 || a > H || b < 1 || smem > kMaxSharedBytes)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      zbuf, 0, (depth_only ? sizeof(unsigned int)
+                           : sizeof(unsigned long long)) * (size_t)np, s);
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long* z = (unsigned long long*)zbuf;
+  const long long nt = (long long)B * F;
+  if (nt > 0) {
+    const unsigned tblocks = (unsigned)((nt + threads - 1) / threads);
+    if (probe == 0) {
+      if (depth_only)
+        inside_only_kernel<true><<<tblocks, threads, 0, s>>>(
+            vertices, triangles, B, V, F, H, W, zbuf);
+      else
+        inside_only_kernel<false><<<tblocks, threads, 0, s>>>(
+            vertices, triangles, B, V, F, H, W, zbuf);
+      err = cudaGetLastError();
+    } else if (probe == 1) {
+      err = launch_unroll(a, b, vertices, triangles, B, V, F, H, W, z, s);
+    } else {
+      if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(band_regacc_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+      }
+      // one thread per triangle of the chunk, in whole warps, at most 512
+      const long long nc = (F + (long long)b - 1) / b;
+      const int bthreads = ((b < 512 ? b : 512) + 31) / 32 * 32;
+      band_regacc_kernel<<<(unsigned)(B * nc), bthreads, smem, s>>>(
+          vertices, triangles, B, V, F, H, W, a, b, z);
+      err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (np > 0) {
+    if (depth_only)
+      depth_resolve_kernel<<<pblocks, threads, 0, s>>>(
+          (const unsigned int*)zbuf, np, depth);
+    else
+      resolve_kernel<<<pblocks, threads, 0, s>>>(z, triangles, nullptr, B, V,
+                                                 F, 0, H, W, winner, depth,
+                                                 nullptr, nullptr);
   }
   return (int)cudaGetLastError();
 }

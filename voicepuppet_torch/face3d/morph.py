@@ -1,7 +1,8 @@
 """3DMM forward math, batched over frames.
 
 Port of ``voicepuppet_tpu/face3d/morph.py`` (:85-298), the gather path
-that the serving ``Synthesizer`` runs (no corner cache): ``split_coeff``
+that the serving ``Synthesizer`` and the raster probes run (no corner
+cache): ``split_coeff``
 -> shape / texture PCA decode -> one-ring vertex normals through
 ``point_buf`` -> rotation -> perspective projection -> 9-term SH lighting.
 Matmuls run in full float32 (TF32 off), matching ``Precision.HIGHEST``.
@@ -160,6 +161,29 @@ class Reconstruction(NamedTuple):
     face_projection: torch.Tensor   # [B, N, 2] (y flipped to image rows)
     z_buffer: torch.Tensor          # [B, N, 1]
     landmarks_2d: torch.Tensor      # [B, 68, 2]
+
+
+def reconstruct(coeff, fm: DeviceBFM,
+                image_size: float = 224.0) -> Reconstruction:
+    """Full coefficients -> screen-space mesh with the coefficients' own
+    pose (ref: reconstruct_mesh.py:172-194): the shape stays unrotated, the
+    normals and the projection are rotated, y is flipped to image rows."""
+    full_fp32_matmuls()
+    id_c, ex_c, tex_c, angles, gamma, translation = split_coeff(coeff)
+    face_shape = shape_formation(id_c, ex_c, fm)
+    face_texture = texture_formation(tex_c, fm)
+    face_norm = compute_norm(face_shape, fm)
+    rotation = rotation_matrix(angles)
+    face_norm_r = face_norm @ rotation
+    face_projection, z_buffer = projection_layer(face_shape, rotation,
+                                                 translation)
+    face_projection = torch.stack(
+        [face_projection[..., 0], image_size - face_projection[..., 1]],
+        dim=-1)
+    landmarks_2d = face_projection[:, fm.keypoints, :]
+    face_color, _ = illumination_layer(face_texture, face_norm_r, gamma)
+    return Reconstruction(face_shape, face_texture, face_color,
+                          face_projection, z_buffer, landmarks_2d)
 
 
 def reconstruct_rotation(coeff, fm: DeviceBFM, angles,

@@ -26,7 +26,8 @@ FMA) may each decide a pixel whose centre lies within ~1e-5 of an edge
 differently, and the tests hold those departures to the float64-verified
 borderline contract of ``ops/raster_selftest.py``.
 
-These are the plain versions of the CUDA kernels in ``csrc/raster.cu``:
+These are the plain versions of the CUDA kernels in ``csrc/raster.cu``,
+the raster A/B probes X1 and X3 included (X2's is ``rasterize_winner``):
 the CPU tests use them, and ``chip_smoke.py`` holds the kernels against
 them on the card, bit for bit.  ``winner_weights`` and ``sample_texture``
 are dense post-passes with no kernel of their own.
@@ -88,9 +89,11 @@ def _barycentric(g, px, py):
 
 
 def _fragments(vertices: torch.Tensor, triangles: torch.Tensor, h: int,
-               w: int, interp: bool):
+               w: int, interp: bool, drop_degenerate: bool = False):
     """Every fragment that draws: (triangle id [N] int64, pixel [N] int64 as
-    frame*h*w + y*w + x, depth [N] float32 > -99999, -0.0 made +0.0)."""
+    frame*h*w + y*w + x, depth [N] float32 > -99999, -0.0 made +0.0).
+    ``drop_degenerate``: triangles with ``inv_deno == 0`` draw nothing
+    (the X1 probe) instead of covering their whole bbox."""
     b = vertices.shape[0]
     f = triangles.shape[0]
     dev = vertices.device
@@ -103,6 +106,8 @@ def _fragments(vertices: torch.Tensor, triangles: torch.Tensor, h: int,
     live = (x_max >= x_min) & (y_max >= y_min) & finite
     if not interp:
         live &= s["depth"] > DEPTH_INIT
+    if drop_degenerate:
+        live &= s["inv_deno"] != 0
     zero = torch.zeros((), device=dev)
     bw = torch.where(live, x_max - x_min + 1.0, zero).long()
     bh = torch.where(live, y_max - y_min + 1.0, zero).long()
@@ -184,6 +189,65 @@ def rasterize_winner_interp(vertices: torch.Tensor, triangles: torch.Tensor,
     tri, pix, depth = _fragments(vertices, triangles, h, w, interp=True)
     return _resolve(tri, pix, depth, vertices.shape[0], triangles.shape[0],
                     h, w, group)
+
+
+# ---- the raster A/B probes (experiments/profile_raster{2,_regacc}.py) -----
+
+def rasterize_winner_inside_only(vertices: torch.Tensor,
+                                 triangles: torch.Tensor, h: int, w: int,
+                                 winner: bool = True):
+    """X1 (``_kernel_b``): K1 with degenerate triangles (``inv_deno == 0``)
+    drawing nothing, the depth -1e10 of ``_trim_table``.  The bbox walk
+    bounds the pixels and the inside test alone decides.  -> (winner,
+    depth) as :func:`rasterize_winner`, or with ``winner=False`` the depth
+    buffer [B,h,w] only (the probe's depth-only variant)."""
+    tri, pix, depth = _fragments(vertices, triangles, h, w, interp=False,
+                                 drop_degenerate=True)
+    winner_buf, depth_buf = _resolve(tri, pix, depth, vertices.shape[0],
+                                     triangles.shape[0], h, w, 0)
+    return (winner_buf, depth_buf) if winner else depth_buf
+
+
+def degenerate(vertices: torch.Tensor, triangles: torch.Tensor
+               ) -> torch.Tensor:
+    """[B, F] bool: the triangles whose ``inv_deno`` is 0, which K1 lets
+    cover their whole bbox and X1 drops."""
+    return _triangle_setup(vertices, triangles)["inv_deno"] == 0
+
+
+def band_origins(vertices: torch.Tensor, triangles: torch.Tensor, h: int,
+                 win: int, chunk: int) -> torch.Tensor:
+    """[B, ceil(F/chunk)] int64: each chunk's band start row, its first
+    triangle's aligned window origin ``clip(floor(y_min/8)*8, 0, h-win)``
+    with ``y_min = max(ceil(min y), 0)`` (raster_pallas.py:106-111),
+    whether or not that triangle draws.  A NaN origin becomes row 0, as
+    XLA converts NaN to int32."""
+    first = triangles[::chunk].long()
+    ys = vertices.float()[:, first, 1]                     # [B, nc, 3]
+    y_min = torch.clamp(torch.ceil(ys.amin(-1)), min=0.0)
+    y0 = torch.clamp(torch.floor(y_min / 8.0) * 8.0, 0.0, float(h - win))
+    return torch.nan_to_num(y0, nan=0.0).long()
+
+
+def rasterize_winner_banded(vertices: torch.Tensor, triangles: torch.Tensor,
+                            h: int, w: int, win: int = 16, chunk: int = 64
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """X3 (``_regacc_kernel``): K1's fragments, each counted only inside
+    the ``win``-row band of its chunk of ``chunk`` consecutive triangles
+    (:func:`band_origins`), then the order-free (max depth, min id) rule:
+    the kernel's strict ``>`` in id order within a chunk and its
+    (max depth, min id) flush across chunks.  Equals K1 when every
+    chunk's triangles lie in their band; on an unsorted table it differs,
+    as the probe does."""
+    if not 1 <= win <= h:
+        raise ValueError(f"band height {win} outside [1, {h}]")
+    tri, pix, depth = _fragments(vertices, triangles, h, w, interp=False)
+    start = band_origins(vertices, triangles, h, win, chunk)
+    row = (pix % (h * w)) // w
+    lo = start[pix // (h * w), tri // chunk]
+    keep = (row >= lo) & (row < lo + win)
+    return _resolve(tri[keep], pix[keep], depth[keep], vertices.shape[0],
+                    triangles.shape[0], h, w, 0)
 
 
 def flat_color_image(winner: torch.Tensor, colors: torch.Tensor,

@@ -84,23 +84,36 @@ def build_library(src: str = _SRC, build_dir: str = BUILD_DIR) -> Tuple[str, str
 
 
 class RasterLibrary:
-    """The lazily built ``csrc/raster.cu`` library, shared by the kernels."""
+    """The lazily built ``csrc/raster.cu`` library, shared by the kernels:
+    ``vp_raster`` (K1-K5) and ``vp_raster_probe`` (the probes X1-X3,
+    ``ops/raster_probes.py``)."""
 
     def __init__(self):
         self.build_log = ""
-        self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
 
-    def function(self):
+    def _load(self):
         with self._lock:
-            if self._fn is None:
+            if self._lib is None:
                 path, self.build_log = build_library()
-                fn = ctypes.CDLL(path).vp_raster
-                fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                               + [ctypes.c_void_p] * 6)
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
+                lib = ctypes.CDLL(path)
+                lib.vp_raster.argtypes = ([ctypes.c_void_p] * 3
+                                          + [ctypes.c_int] * 8
+                                          + [ctypes.c_void_p] * 6)
+                lib.vp_raster.restype = ctypes.c_int
+                lib.vp_raster_probe.argtypes = ([ctypes.c_void_p] * 2
+                                                + [ctypes.c_int] * 8
+                                                + [ctypes.c_void_p] * 4)
+                lib.vp_raster_probe.restype = ctypes.c_int
+                self._lib = lib
+            return self._lib
+
+    def function(self):
+        return self._load().vp_raster
+
+    def probe_function(self):
+        return self._load().vp_raster_probe
 
 
 LIBRARY = RasterLibrary()

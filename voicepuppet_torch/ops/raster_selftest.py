@@ -20,6 +20,13 @@ mask; and K4 must equal K1, K5 equal K3.  (Against the sequential spec
 low-bit-y mesh may differ at pixels whose centre lies within ~1e-5 of an
 edge, and interpolated depths at exact ties; tests/test_torch_raster*.py
 hold the plain versions to that spec on the CPU.)
+
+``run_probe_selftest(device)`` does the same for the raster A/B probes
+(``ops/raster_probes.py``) on every case above and on a band-fitting
+case: X1 in both modes, X2 at every (fb, unroll), X3 at each of
+``REGACC_SETTINGS``, each bit for bit against its plain version, X2 and
+X1 (off degenerate winners) against K1, and X3 against K1 where every
+chunk fits its band.
 """
 
 from __future__ import annotations
@@ -221,6 +228,40 @@ INTERP_CASES: Dict[str, Callable[[], Case]] = {
 # size, and more members than a warp's lanes (two batches per group)
 GROUP_SIZES = (1, 4, 33)
 
+# X3's (win, fb) settings: profile_raster_regacc.py's three variants
+REGACC_SETTINGS = ((16, 8), (16, 4), (8, 8))
+
+
+def band_fitting_mesh() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A soup for a 64² canvas: 8 runs of 64 consecutive triangles, run k
+    drawn only in rows 8k+1 .. 8k+6 (corners on a quarter-pixel grid,
+    distinct depths).  Every chunk of 64 or 128 consecutive triangles then
+    lies inside the 8- or 16-row band that starts at its first triangle's
+    aligned origin, so X3 at each of REGACC_SETTINGS equals K1 on it."""
+    rng = np.random.default_rng(5)
+    per_band, w = 64, 64
+    pts = []
+    for k in range(8):
+        anchor = rng.uniform([2.0, 8.0 * k], [w - 10.0, 8.0 * k + 0.5],
+                             (per_band, 2))
+        offs = np.stack([rng.uniform(1.0, 7.0, (per_band, 2)),
+                         rng.uniform(1.0, 6.0, (per_band, 2))], -1)
+        pts.append(np.concatenate([anchor[:, None], anchor[:, None] + offs],
+                                  1))
+    pts = np.floor(np.concatenate(pts) * 4.0) / 4.0 + 0.3
+    n = pts.shape[0]
+    depth = np.repeat(rng.permutation(n)[:, None] + 1.0, 3, 1)[..., None]
+    verts = np.concatenate([pts, depth], -1).reshape(-1, 3)
+    tris = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+    colors = np.repeat(rng.integers(0, 256, (n, 1, 3)), 3, 1)
+    return (verts.astype(np.float32), tris,
+            colors.reshape(-1, 3).astype(np.float32))
+
+
+PROBE_CASES: Dict[str, Callable[[], Case]] = {
+    "band_fitting": lambda: band_fitting_mesh() + (64, 64),
+}
+
 
 def sphere_uv(num_theta: int, num_phi: int, tex_h: int, tex_w: int
               ) -> np.ndarray:
@@ -295,17 +336,92 @@ def check_against_plain(vertices: torch.Tensor, colors: torch.Tensor,
     return int((want_mask > 0).sum())
 
 
+def expect_inside_only_matches_k1(x1_winner: torch.Tensor,
+                                  k1_winner: torch.Tensor,
+                                  vertices: torch.Tensor,
+                                  triangles: torch.Tensor, label: str) -> int:
+    """X1's winner equals K1's at every pixel whose K1 winner is not a
+    degenerate triangle (X1 drops only those).  Returns the count of pixels
+    that K1 gives to a degenerate triangle."""
+    from voicepuppet_torch.face3d import raster as plain
+    f = triangles.shape[0]
+    deg = plain.degenerate(vertices, triangles)                 # [B, F]
+    deg = torch.cat([deg, deg.new_zeros((deg.shape[0], 1))], 1)
+    deg_won = torch.gather(deg, 1, k1_winner.reshape(deg.shape[0], -1).long()
+                           .clamp(max=f)).reshape(k1_winner.shape)
+    expect_equal(torch.where(deg_won, k1_winner, x1_winner), k1_winner,
+                 f"{label} X1 == K1 off degenerate winners")
+    return int(deg_won.sum())
+
+
+def check_probes_against_plain(vertices: torch.Tensor,
+                               triangles: torch.Tensor, h: int, w: int,
+                               label: str, band_fits: bool = False) -> int:
+    """Hold every probe against its plain version on the same CUDA tensors,
+    bit for bit: X1 with winner and depth-only (whose depth must equal the
+    winner mode's), X1 against K1 off degenerate winners, X2 at every
+    (fb, unroll) against K1, X3 at each of REGACC_SETTINGS, and with
+    ``band_fits`` X3 against K1.  Returns the count of pixels K1 gives a
+    degenerate triangle."""
+    from voicepuppet_torch.face3d import raster as plain
+    from voicepuppet_torch.ops import raster_probes as probes
+    if vertices.device.type != "cuda":
+        raise ValueError("the selftest compares the CUDA kernel: pass "
+                         "tensors on a CUDA device")
+    flat = plain.rasterize_winner(vertices, triangles, h, w)
+    x1 = plain.rasterize_winner_inside_only(vertices, triangles, h, w)
+    _expect_pair(probes.raster_b(vertices, triangles, h, w), x1,
+                 f"{label} X1")
+    depth_only = probes.raster_b(vertices, triangles, h, w, winner=False)
+    expect_equal(depth_only, x1[1], f"{label} X1 depth-only")
+    deg_won = expect_inside_only_matches_k1(x1[0], flat[0], vertices,
+                                            triangles, label)
+    for fb in probes.UNROLLS:
+        for unroll in probes.UNROLLS:
+            _expect_pair(probes.raster_u(vertices, triangles, h, w, fb=fb,
+                                         unroll=unroll), flat,
+                         f"{label} X2 fb {fb} unroll {unroll}")
+    for win, fb in REGACC_SETTINGS:
+        want = plain.rasterize_winner_banded(vertices, triangles, h, w, win,
+                                             512 // fb)
+        _expect_pair(probes.rasterize_regacc(vertices, triangles, h, w,
+                                             win=win, fb=fb), want,
+                     f"{label} X3 win {win} fb {fb}")
+        if band_fits:
+            _expect_pair(want, flat, f"{label} X3 win {win} fb {fb} == K1")
+    return deg_won
+
+
+def _case_tensors(make, device):
+    v, t, c, h, w = make()
+    vt = torch.as_tensor(v[None], device=device).contiguous()
+    ct = torch.as_tensor(c[None], device=device).contiguous()
+    tt = torch.as_tensor(t, dtype=torch.int32, device=device)
+    return vt, ct, tt, h, w
+
+
 def run_selftest(device="cuda") -> Dict[str, int]:
     """Every quirk case on ``device``: {case: covered pixels}.  Raises
     AssertionError on the first difference."""
     report = {}
     for name, make in {**CASES, **GROUPED_CASES, **INTERP_CASES}.items():
-        v, t, c, h, w = make()
-        vt = torch.as_tensor(v[None], device=device).contiguous()
-        ct = torch.as_tensor(c[None], device=device).contiguous()
-        tt = torch.as_tensor(t, dtype=torch.int32, device=device)
+        vt, ct, tt, h, w = _case_tensors(make, device)
         covered = check_against_plain(vt, ct, tt, h, w, name)
         if covered == 0:
             raise AssertionError(f"{name}: the case draws nothing")
         report[name] = covered
+    return report
+
+
+def run_probe_selftest(device="cuda") -> Dict[str, int]:
+    """Every quirk, grouped and interp case, and the band-fitting case, on
+    ``device`` through the probes (:func:`check_probes_against_plain`):
+    {case: pixels whose K1 winner is a degenerate triangle}.  Raises
+    AssertionError on the first difference."""
+    report = {}
+    for name, make in {**CASES, **GROUPED_CASES, **INTERP_CASES,
+                       **PROBE_CASES}.items():
+        vt, _, tt, h, w = _case_tensors(make, device)
+        report[name] = check_probes_against_plain(
+            vt, tt, h, w, name, band_fits=name in PROBE_CASES)
     return report
