@@ -7,15 +7,17 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
 /usr/local/cuda).  Phases, each of which fails the script on any fault:
 
   1. device and build   print the card's name and power limit; build the
-                        raster kernels (csrc/raster.cu: flat K1, grouped K4,
-                        interpolated K3 and K5, the probes X1-X3) into
-                        build/ and print ptxas's registers and spills.
+                        raster kernels (csrc/raster.cu: flat K1, grouped K4
+                        and K5 at each tile width, interpolated K3, the
+                        probes X1-X3) into build/ and print ptxas's
+                        registers and spills.
   2. raster parity      every CUDA kernel against its plain PyTorch version,
                         bit for bit, through every entry point: the quirk,
                         grouped and interp meshes of ops/raster_selftest.py,
                         then the full 189² synthetic mesh at 224² for one
-                        32-frame chunk of the main path (K4 at groups 1, 4
-                        and 33, K3, K5), K4 against K1 and K5 against K3.
+                        32-frame chunk of the main path (K4 and K5 at each
+                        of raster_selftest.GROUP_SIZES, K3), K4 against K1
+                        and K5 against K3.
   3. main path          Config() (ngf 64, 512², BFMNet width 1.0),
                         synthetic_bfm(189, 189), chunk 32, random weights
                         from seed 0: Synthesizer.synthesize on 2.2 s of
@@ -39,7 +41,7 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         against the plain version, image within 1e-5, and
                         K5 equal to K3.
   6. kernel times       each kernel beside its plain version and its bound,
-                        at the shapes its path gives it.
+                        at the shapes its path gives it; K4/K1 and K5/K3.
   7. probe path         the raster A/B probes (ops/raster_probes.py): the
                         probe selftest on every quirk, grouped and interp
                         case and a band-fitting one; at the JAX profile
@@ -595,6 +597,9 @@ def main():
         f"{p5_ms:.4f} ms); interp bound {ibound:.4f} ms ({ibound_by}: "
         f"{inbytes} B, {iops} ops); render_texture_kernel total "
         f"{tex_ms:.4f} ms; {card}")
+    log(f"raster B={CHUNK} ratios in this run: K4/K1 {k4_ms / k_ms:.3f} "
+        f"(group 4, image and mask), K5/K3 {k5_ms / k3_ms:.3f} (group 4, "
+        f"winner and depth); {card}")
 
     # ---- 7. the probe path: X1-X3 and the A/B profile entry points ------
     t0 = time.perf_counter()

@@ -449,18 +449,97 @@ def test_grouped_winner_equals_flat_winner(group):
         assert torch.equal(gw, fw) and torch.equal(gd, fd)
 
 
-@pytest.mark.parametrize("name", sorted(tself.CASES))
+@pytest.mark.parametrize("name", sorted({**tself.CASES,
+                                         **tself.GROUPED_CASES}))
 def test_selftest_cases_grouped_plain_equals_flat(name):
-    """Every quirk case of the on-card gate, through the grouped plain
-    version (K4's reference on the card) at each of its group sizes:
-    bit for bit the flat plain version's winner and depth."""
-    v, t, _, h, w = tself.CASES[name]()
-    vt = torch.from_numpy(v[None])
+    """Every quirk and grouped case of the on-card gate, through the
+    grouped plain version (K4's reference on the card) at each of its group
+    sizes: bit for bit the flat plain version's winner and depth."""
+    v, t, _, h, w = {**tself.CASES, **tself.GROUPED_CASES}[name]()
+    vt = torch.from_numpy(v if v.ndim == 3 else v[None])
     tt = torch.from_numpy(t.astype(np.int32))
     want = traster.rasterize_winner(vt, tt, h, w)
     for g in tself.GROUP_SIZES:
         got = traster.rasterize_winner(vt, tt, h, w, group=g)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_grouped_mixed_tiles_matches_jax_grouped_kernel_and_spec():
+    """The tile-geometry case (three frames, each jittered its own way) at
+    group 4 and B = 3: the port's grouped plain version (K4's reference on
+    the card) equals the JAX grouped path and, frame by frame, the
+    sequential spec, bit for bit.  Its scattered groups send the JAX path
+    to its per-triangle fallback, which crops nothing here (no triangle is
+    25 rows tall).  The spec's integer bbox cannot take a NaN corner, so it
+    gets those triangles off the canvas, where they draw nothing too."""
+    v, t, c = tself.grouped_mixed_tiles()
+    h = w = 96
+    img, mask = tops.render_colors_grouped(
+        torch.from_numpy(v), torch.from_numpy(c), torch.from_numpy(t), h=h,
+        w=w, group=4)
+    img, mask = img.numpy(), mask.numpy()
+    assert (mask > 0).sum((1, 2)).min() > 0
+    assert not (mask[0] == mask[1]).all() and not (mask[1] == mask[2]).all()
+    j_img, j_mask = jpallas.render_colors_grouped_pallas(
+        v, c, t, h=h, w=w, group=4, interpret=True)
+    np.testing.assert_array_equal(mask, np.asarray(j_mask))
+    np.testing.assert_array_equal(img, np.asarray(j_img))
+    for b in range(v.shape[0]):
+        vb = v[b].copy()
+        nan_tri = ~np.isfinite(vb[t]).all((1, 2))
+        assert nan_tri.sum() == 2
+        vb[t[nan_tri].reshape(-1), :2] = -50.0
+        _equal((img[b], mask[b]), jref.render_colors_ref(vb, t, c[b], h, w))
+
+
+@pytest.mark.parametrize("group", [3, 4, 8])
+def test_grouped_mixed_tiles_holds_every_tile_kind(group):
+    """The tile-geometry case as group_kernel (csrc/raster.cu) sees it at
+    ``group``: in every frame the first 32/T groups (T the tile width, the
+    smallest power of two >= group; one warp's tiles) hold a compact group
+    of two or more live members on the union walk, a scattered group on
+    the per-member walk, an all-empty group and a depth tie between two
+    overlapping members; the last group is ragged, the warps' tiles
+    straddle frames and the last warp holds tiles past the end."""
+    v, t, _ = tself.grouped_mixed_tiles()
+    b, f = v.shape[0], t.shape[0]
+    h = w = 96
+    tiles = 32 // (1 << (group - 1).bit_length())
+    ngroups = -(-f // group)
+    assert f % group and ngroups % tiles and (b * ngroups) % tiles
+    corners = v[:, t]                                    # [B, F, 3, 3]
+    with np.errstate(invalid="ignore"):
+        x0 = np.maximum(np.ceil(corners[..., 0].min(-1)), 0.0)
+        x1 = np.minimum(np.floor(corners[..., 0].max(-1)), w - 1.0)
+        y0 = np.maximum(np.ceil(corners[..., 1].min(-1)), 0.0)
+        y1 = np.minimum(np.floor(corners[..., 1].max(-1)), h - 1.0)
+        depth = corners[..., 2].mean(-1)
+        live = (np.isfinite(corners[..., :2]).all((-1, -2)) & (x1 >= x0)
+                & (y1 >= y0) & (depth > -99999.0))
+    area = (x1 - x0 + 1) * (y1 - y0 + 1)
+    for frame in range(b):
+        kinds = set()
+        for g in range(tiles):
+            m = np.arange(g * group, (g + 1) * group)
+            m = m[live[frame, m]]
+            if m.size == 0:
+                kinds.add("empty")
+                continue
+            bx0, bx1 = x0[frame, m], x1[frame, m]
+            by0, by1 = y0[frame, m], y1[frame, m]
+            uarea = (bx1.max() - bx0.min() + 1) * (by1.max() - by0.min() + 1)
+            if uarea > 2 * area[frame, m].sum() + 64:
+                kinds.add("scattered")
+            elif m.size >= 2:
+                kinds.add("compact")
+            for i in range(m.size):
+                for j in range(i + 1, m.size):
+                    if (depth[frame, m[i]] == depth[frame, m[j]]
+                            and bx0[i] <= bx1[j] and bx0[j] <= bx1[i]
+                            and by0[i] <= by1[j] and by0[j] <= by1[i]):
+                        kinds.add("tie")
+        assert kinds == {"compact", "scattered", "empty", "tie"}, (frame,
+                                                                   kinds)
 
 
 def test_grouped_entry_points_refuse_group_zero():

@@ -60,7 +60,9 @@ SOUPS = ("interp_soup", "soup", "xband_soup")
 
 
 def _tensors(v, t):
-    return (torch.from_numpy(np.ascontiguousarray(v[None])),
+    """Vertices [V, 3] are one frame, [B, V, 3] are B."""
+    return (torch.from_numpy(np.ascontiguousarray(v if v.ndim == 3
+                                                  else v[None])),
             torch.from_numpy(np.array(t, dtype=np.int32)))
 
 

@@ -32,16 +32,38 @@
 //           the setup (p0, edge vectors, dot products, inv_deno) in the
 //           operation order of face3d/raster_ref.py:_point_in_tri and walks
 //           its clipped integer bbox.
-//             grouped (K4, K5): one warp per (frame, group of G consecutive
-//           triangles).  Lane k builds member k's setup into shared memory;
-//           the lanes then walk the group's union bbox, each merging the
-//           members at its pixel in id order with a strict '>' of the key
-//           before one atomicMax.  When the union is far larger than the
-//           members' bboxes together (a scattered triangle order), the lanes
-//           walk each member's bbox instead.  The max of the keys does not
-//           depend on that choice, so both walks give K1's (K3's) output
-//           bit for bit.  Groups of more than 32 triangles are taken 32
-//           members at a time, one atomicMax per pixel per batch.
+//             grouped (K4, K5): one T-lane tile per (frame, group of G
+//           consecutive triangles), T the smallest power of two >=
+//           min(G, 32), 32/T tiles per warp.  Lane k of a tile builds member
+//           k's setup into the warp's shared slots; the tile reduces its
+//           union bbox with log2(T) shuffles and its T lanes walk it, each
+//           merging the members at its pixel in id order with a strict '>'
+//           of the key before one atomicMax (at T <= 8 the members' bboxes
+//           are shuffled into registers first, so the per-pixel bbox tests
+//           wait on no shared-memory load).  When the union is far larger
+//           than the members' bboxes together (a scattered triangle order),
+//           the tile walks each member's bbox instead.  The max of the keys
+//           does not depend on that choice, so both walks give K1's (K3's)
+//           output bit for bit.  At T = 32 a group of more than 32 triangles
+//           is taken 32 members at a time, one atomicMax per pixel per batch.
+//             What bounds it: a warp's fixed cost (dependent index and vertex
+//           loads, the shuffles, the ballot) against the work it is given.
+//           The earlier form gave each group a whole warp: at G = 4 only
+//           four lanes loaded and built a setup, and the union bbox of the
+//           189² mesh at 224² (11.2 px on average) left ~21 of 32 lanes idle
+//           in its walk, so B x F/4 warps took ~67 waves of the card against
+//           K1's ~8.4.  The tiles give the warp K1's count (B x F / 32 at
+//           every G <= 32), every lane a setup, and a walk that fits the
+//           union, while the merge still saves atomics.  What is left is the
+//           walk's per-pixel member tests (G bbox tests and ~1.7 inside
+//           tests per union pixel at G = 4), so a larger G costs more per
+//           pixel; on an H100 at 700 W K4 at G = 4 takes ~1.3x K1
+//           (chip_smoke.py; PERF.md).  The hazards, each
+//           marked where it sits: a warp leaves early only when all its
+//           tiles are past B x ngroups (the shuffles take the full mask);
+//           one warp's tiles may straddle frames, so each tile finds its own
+//           frame; __ffs over a tile's live mask indexes that tile's slots;
+//           the __syncwarp before a next 32-member batch stays where it was.
 //   pass 2  one thread per pixel unpacks the key into winner/depth and, when
 //           colours are given, gathers the flat colour with the C++
 //           truncation floor((floor(c0)+floor(c1)+floor(c2))/3) into a uint8
@@ -201,91 +223,165 @@ __global__ void triangle_kernel(const float* __restrict__ verts,
   }
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+// Reductions over the T lanes of one tile (T a power of two; at T = 1 the
+// value itself).  Every lane of the warp must call them together.
+template <int T>
+__device__ __forceinline__ int tile_min(int v) {
+#pragma unroll
+  for (int o = T / 2; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, o, T));
   return v;
 }
 
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+template <int T>
+__device__ __forceinline__ int tile_max(int v) {
+#pragma unroll
+  for (int o = T / 2; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, o, T));
   return v;
 }
 
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+template <int T>
+__device__ __forceinline__ long long tile_sum(long long v) {
+#pragma unroll
+  for (int o = T / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, o, T);
   return v;
 }
 
-template <bool INTERP>
+// Lane k of a T-lane tile calls f(x, y) at pixels k, k + T, k + 2T, ... of
+// the box [x0, x1] x [y0, y1] in row order: one division per walk, none per
+// pixel.
+template <int T, typename Fn>
+__device__ __forceinline__ void tile_walk(int x0, int x1, int y0, int y1,
+                                          int k, Fn f) {
+  const int w = x1 - x0 + 1;
+  const int sy = T / w, sx = T - sy * w;   // T = sy rows + sx columns
+  int x = x0 + k % w, y = y0 + k / w;
+  while (y <= y1) {
+    f(x, y);
+    x += sx;
+    y += sy;
+    if (x > x1) {
+      x -= w;
+      ++y;
+    }
+  }
+}
+
+// The widest tile whose union walk keeps its members' bboxes in registers
+// (4 x T of them).
+constexpr int kRegBoxes = 8;
+
+// K4/K5: one T-lane tile per (frame, group of G consecutive triangles), 32/T
+// tiles per warp (header note).
+template <bool INTERP, int T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 group_kernel(const float* __restrict__ verts, const int* __restrict__ tris,
              int B, int V, int F, int G, int H, int W,
              unsigned long long* __restrict__ zbuf) {
+  constexpr int kTiles = 32 / T;
   __shared__ Tri members[kWarpsPerBlock][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = lane / T, k = lane % T;
   const long long ngroups = (F + (long long)G - 1) / G;
-  const long long gw = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (gw >= (long long)B * ngroups) return;   // the whole warp leaves
-  const int b = (int)(gw / ngroups);
-  const long long g0 = (gw - (long long)b * ngroups) * G;
-  const long long g1 = min(g0 + G, (long long)F);
+  const long long ntiles = (long long)B * ngroups;
+  const long long first =
+      ((long long)blockIdx.x * kWarpsPerBlock + warp) * kTiles;
+  // Only a warp whose first tile is past the end leaves: the tile shuffles
+  // below take the full mask, so a tile past the end stays in with no
+  // members (n <= 0, ok = false) and walks nothing.
+  if (first >= ntiles) return;
+  const long long gt = first + tile;
+  // Each tile finds its own frame: one warp's tiles may straddle frames.
+  int b = 0;
+  long long g0 = 0, g1 = 0;
+  if (gt < ntiles) {
+    b = (int)(gt / ngroups);
+    g0 = (gt - (long long)b * ngroups) * G;
+    g1 = min(g0 + G, (long long)F);
+  }
   const float* vb = verts + (size_t)b * V * 3;
   unsigned long long* zb = zbuf + (size_t)b * H * W;
-  Tri* sm = members[warp];
+  // the tile's T member slots; __ffs over the tile's live mask indexes here
+  Tri* sm = members[warp] + tile * T;
 
-  for (long long base = g0; base < g1; base += 32) {
-    const int n = (int)min(32ll, g1 - base);
+  // At T < 32 a group has at most T members: one pass.  At T = 32 the warp
+  // is one tile, and a group of more than 32 goes 32 members at a time.
+  long long base = g0;
+  do {
+    const int n = (int)min((long long)T, g1 - base);
     bool ok = false;
-    if (lane < n)
-      ok = tri_setup<INTERP>(vb, tris, (int)(base + lane), V, H, W,
-                             sm[lane]);
-    const unsigned live = __ballot_sync(0xFFFFFFFFu, ok);
-    const Tri& mine = sm[lane];
-    const int ux0 = warp_min(ok ? mine.x0 : 0x7FFFFFFF);
-    const int uy0 = warp_min(ok ? mine.y0 : 0x7FFFFFFF);
-    const int ux1 = warp_max(ok ? mine.x1 : -1);
-    const int uy1 = warp_max(ok ? mine.y1 : -1);
-    const long long area = warp_sum(
+    if (k < n)
+      ok = tri_setup<INTERP>(vb, tris, (int)(base + k), V, H, W, sm[k]);
+    // the tile's T bits of the warp's ballot (at T = 32, all of it)
+    const unsigned live = (__ballot_sync(0xFFFFFFFFu, ok) >> (tile * T)) &
+                          (0xFFFFFFFFu >> (32 - T));
+    const Tri& mine = sm[k];
+    const int ux0 = tile_min<T>(ok ? mine.x0 : 0x7FFFFFFF);
+    const int uy0 = tile_min<T>(ok ? mine.y0 : 0x7FFFFFFF);
+    const int ux1 = tile_max<T>(ok ? mine.x1 : -1);
+    const int uy1 = tile_max<T>(ok ? mine.y1 : -1);
+    const long long area = tile_sum<T>(
         ok ? (long long)(mine.x1 - mine.x0 + 1) * (mine.y1 - mine.y0 + 1)
            : 0ll);
+    // At T <= kRegBoxes every lane of the tile takes its members' bboxes
+    // into registers (an empty box for a slot that is not live), so the
+    // union walk tests them without a chain of shared-memory loads.
+    constexpr int R = T <= kRegBoxes ? T : 1;
+    int bx0[R], bx1[R], by0[R], by1[R];
+    if constexpr (T <= kRegBoxes) {
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        const int src = tile * T + j;
+        bx0[j] = __shfl_sync(0xFFFFFFFFu, ok ? mine.x0 : 0x7FFFFFFF, src);
+        bx1[j] = __shfl_sync(0xFFFFFFFFu, ok ? mine.x1 : -1, src);
+        by0[j] = __shfl_sync(0xFFFFFFFFu, ok ? mine.y0 : 0x7FFFFFFF, src);
+        by1[j] = __shfl_sync(0xFFFFFFFFu, ok ? mine.y1 : -1, src);
+      }
+    }
     __syncwarp();
+    // No shuffle from here to the end of the pass: the tiles diverge.
     if (live) {
-      const int uw = ux1 - ux0 + 1;
-      const long long uarea = (long long)uw * (uy1 - uy0 + 1);
+      const long long uarea = (long long)(ux1 - ux0 + 1) * (uy1 - uy0 + 1);
       if (uarea <= 2 * area + 64) {
         // the group's union bbox, every member merged per pixel in id order
-        for (long long p = lane; p < uarea; p += 32) {
-          const int y = uy0 + (int)(p / uw);
-          const int x = ux0 + (int)(p - (long long)(y - uy0) * uw);
+        tile_walk<T>(ux0, ux1, uy0, uy1, k, [&](int x, int y) {
           unsigned long long best = 0ull;
-          for (unsigned m = live; m; m &= m - 1) {
-            const Tri& t = sm[__ffs(m) - 1];
-            if (x < t.x0 || x > t.x1 || y < t.y0 || y > t.y1) continue;
-            const unsigned long long key = pixel_key<INTERP>(t, x, y, H, W);
-            if (key > best) best = key;
+          if constexpr (T <= kRegBoxes) {
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+              if (x < bx0[j] || x > bx1[j] || y < by0[j] || y > by1[j])
+                continue;
+              const unsigned long long key =
+                  pixel_key<INTERP>(sm[j], x, y, H, W);
+              if (key > best) best = key;
+            }
+          } else {
+            for (unsigned m = live; m; m &= m - 1) {
+              const Tri& t = sm[__ffs(m) - 1];
+              if (x < t.x0 || x > t.x1 || y < t.y0 || y > t.y1) continue;
+              const unsigned long long key =
+                  pixel_key<INTERP>(t, x, y, H, W);
+              if (key > best) best = key;
+            }
           }
           if (best) atomicMax(zb + (size_t)y * W + x, best);
-        }
+        });
       } else {
         // scattered order: each member's own bbox
         for (unsigned m = live; m; m &= m - 1) {
           const Tri& t = sm[__ffs(m) - 1];
-          const int tw = t.x1 - t.x0 + 1;
-          const long long tarea = (long long)tw * (t.y1 - t.y0 + 1);
-          for (long long p = lane; p < tarea; p += 32) {
-            const int y = t.y0 + (int)(p / tw);
-            const int x = t.x0 + (int)(p - (long long)(y - t.y0) * tw);
+          tile_walk<T>(t.x0, t.x1, t.y0, t.y1, k, [&](int x, int y) {
             const unsigned long long key = pixel_key<INTERP>(t, x, y, H, W);
             if (key) atomicMax(zb + (size_t)y * W + x, key);
-          }
+          });
         }
       }
     }
     __syncwarp();   // the next batch overwrites this warp's members
-  }
+    base += T;
+  } while (T == 32 && base < g1);
 }
 
 __global__ void resolve_kernel(const unsigned long long* __restrict__ zbuf,
@@ -518,6 +614,20 @@ cudaError_t launch_unroll(int tpt, int fpt, const float* v, const int* t,
 
 constexpr int kMaxSharedBytes = 232448;   // 227 KB: an H100 block's most
 
+template <bool INTERP, int T>
+cudaError_t launch_group(const float* vertices, const int* triangles, int B,
+                         int V, int F, int H, int W, int group,
+                         unsigned long long* z, cudaStream_t s) {
+  const long long ntiles =
+      (long long)B * ((F + (long long)group - 1) / group);
+  const long long nw = (ntiles + 32 / T - 1) / (32 / T);
+  group_kernel<INTERP, T>
+      <<<(unsigned)((nw + kWarpsPerBlock - 1) / kWarpsPerBlock),
+         32 * kWarpsPerBlock, 0, s>>>(vertices, triangles, B, V, F, group, H,
+                                      W, z);
+  return cudaGetLastError();
+}
+
 template <bool INTERP>
 cudaError_t launch_pass1(const float* vertices, const int* triangles, int B,
                          int V, int F, int H, int W, int group,
@@ -528,14 +638,23 @@ cudaError_t launch_pass1(const float* vertices, const int* triangles, int B,
     triangle_kernel<INTERP>
         <<<(unsigned)((nt + threads - 1) / threads), threads, 0, s>>>(
             vertices, triangles, B, V, F, H, W, z);
-  } else {
-    const long long nw = (long long)B * ((F + (long long)group - 1) / group);
-    group_kernel<INTERP>
-        <<<(unsigned)((nw + kWarpsPerBlock - 1) / kWarpsPerBlock),
-           32 * kWarpsPerBlock, 0, s>>>(vertices, triangles, B, V, F, group,
-                                        H, W, z);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  // the tile width: the smallest power of two >= min(group, 32)
+  int t = 1;
+  while (t < group && t < 32) t <<= 1;
+  const float* v = vertices;
+  const int* tr = triangles;
+  switch (t) {
+    case 1: return launch_group<INTERP, 1>(v, tr, B, V, F, H, W, group, z, s);
+    case 2: return launch_group<INTERP, 2>(v, tr, B, V, F, H, W, group, z, s);
+    case 4: return launch_group<INTERP, 4>(v, tr, B, V, F, H, W, group, z, s);
+    case 8: return launch_group<INTERP, 8>(v, tr, B, V, F, H, W, group, z, s);
+    case 16:
+      return launch_group<INTERP, 16>(v, tr, B, V, F, H, W, group, z, s);
+    default:
+      return launch_group<INTERP, 32>(v, tr, B, V, F, H, W, group, z, s);
+  }
 }
 
 }  // namespace

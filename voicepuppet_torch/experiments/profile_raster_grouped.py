@@ -1,8 +1,9 @@
 """Grouped raster K4 against the per-triangle K1, timed A/B.
 
 Port of experiments/profile_raster_grouped.py.  K4 merges G consecutive
-triangles per warp before one atomicMax per pixel; its output is K1's at
-every group size.  The port walks whole bboxes, so the TPU's window
+triangles per T-lane tile (T the smallest power of two >= min(G, 32),
+32/T tiles per warp) before one atomicMax per pixel; its output is K1's
+at every group size.  The port walks whole bboxes, so the TPU's window
 sizes, fits preflight and fallback have no counterpart: the variants are
 K1 and K4 at groups 4, 8, 16 and 32.  Mesh: synthetic_bfm(189, 189,
 seed=0), 16 frames of demo_coeff(seed=1).

@@ -6,7 +6,9 @@ x-band and grouped cases in ``tests/test_raster.py``: depth ties, a
 degenerate triangle, colour truncation, occlusion order, seam ties, the
 low-bit-y mesh, an edge through pixel centres, a narrow canvas, random
 soups, triangles taller or wider than 128 px, a triangle order with no
-screen locality and an in-group depth tie.
+screen locality and an in-group depth tie; and, of the port's own, a
+three-frame case that puts every kind of K4/K5 tile into one warp
+(``grouped_mixed_tiles``).
 
 ``run_selftest(device)`` builds each case on ``device`` and holds every
 CUDA kernel, through every entry point of ``ops/raster.py``, against its
@@ -213,10 +215,77 @@ def _degenerate_occlusion() -> Case:
     return v, np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32), c, 32, 32
 
 
+_MIXED_FRAMES = 3
+# the corners of the triangles that draw: (x, y) anchor, width, height and
+# flat depth; the quarter-pixel jitter of each frame moves them
+_MIXED_DRAWING = {
+    # 0-7 compact: overlapping, the depth ties 0 = 1 and 4 = 5 in one group
+    # at G = 3, 4 and 8
+    0: (10, 20, 12, 11, 5.0), 1: (12, 22, 11, 12, 5.0),
+    2: (16, 19, 10, 10, 3.0), 3: (9, 26, 12, 10, 7.0),
+    4: (14, 25, 12, 11, 6.0), 5: (17, 27, 10, 12, 6.0),
+    6: (11, 30, 12, 9, 2.0), 7: (20, 23, 10, 11, 4.0),
+    # 8-15 scattered: rows 3-11 on the left, rows 76-84 on the right
+    **{8 + i: ((6 + 4 * i, 3) if i % 2 == 0 else (58 + 3 * i, 76))
+       + (8, 8, 10.0 + i) for i in range(8)},
+    # 24-31 compact over the first cluster: 26 lies behind the depth init
+    # (never draws), 28 ties triangles 0 and 1 from another group
+    24: (22, 28, 11, 10, 4.5), 25: (26, 32, 10, 12, 8.0),
+    26: (20, 30, 12, 12, -2e5), 27: (30, 36, 11, 11, 3.5),
+    28: (14, 21, 10, 10, 5.0), 29: (32, 28, 10, 10, 9.0),
+    30: (24, 40, 12, 10, 1.0), 31: (34, 42, 10, 11, 6.5),
+    # 32-37 the ragged last group, one over the second cluster
+    32: (40, 50, 12, 11, 2.5), 33: (44, 54, 11, 12, 7.5),
+    34: (48, 52, 10, 10, 5.5), 35: (36, 44, 12, 10, 8.5),
+    36: (52, 60, 10, 12, 4.0), 37: (46, 62, 12, 11, 3.0),
+}
+# 16-23: the all-empty group, the same in every frame
+_MIXED_EMPTY = {
+    16: [[-30.0, 40.0], [-20.0, 40.0], [-25.0, 48.0]],   # left of the canvas
+    17: [[30.0, 50.5], [40.0, 50.5], [35.0, 50.5]],      # degenerate, no row
+    18: [[np.nan, 40.0], [50.0, 40.0], [45.0, 48.0]],    # NaN corner
+    19: [[40.0, 100.0], [50.0, 100.0], [45.0, 108.0]],   # below it
+    20: [[60.2, 30.2], [60.7, 30.4], [60.4, 30.8]],      # no pixel centre
+    21: [[101.0, 40.0], [110.0, 40.0], [105.0, 48.0]],   # right of it
+    22: [[70.0, 40.0], [80.0, np.nan], [75.0, 48.0]],    # NaN corner
+    23: [[40.0, -20.0], [50.0, -20.0], [45.0, -12.0]],   # above it
+}
+
+
+def grouped_mixed_tiles() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Three frames of 38 triangles for a 96² canvas -> (vertices [3,114,3],
+    triangles [38,3], colours [3,114,3]).  At G = 3, 4 and 8 the first
+    warp's tiles of each frame (triangles 0-23) hold compact groups, in-group
+    depth ties, scattered groups (members >= 60 rows apart) and an all-empty
+    group (off the canvas, a degenerate triangle between rows, NaN corners,
+    a sliver between pixel centres).  38 is no multiple of 3, 4 or 8, so the
+    last group is ragged, tiles straddle frames and the last warp holds
+    tiles past the end.  Each frame moves the drawing corners by its own
+    quarter pixels (off pixel centres by 0.3); no triangle is 25 rows tall,
+    so the TPU grouped path does not crop."""
+    rng = np.random.default_rng(13)
+    n = len(_MIXED_DRAWING) + len(_MIXED_EMPTY)
+    verts = np.zeros((_MIXED_FRAMES, n, 3, 3), np.float32)
+    for f, pts in _MIXED_EMPTY.items():
+        verts[:, f, :, :2] = pts
+        verts[:, f, :, 2] = 1.0
+    for b in range(_MIXED_FRAMES):
+        for f, (x, y, sx, sy, z) in _MIXED_DRAWING.items():
+            pts = np.array([[x, y], [x + sx, y + 0.5 * sy],
+                            [x + 0.25 * sx, y + sy]])
+            verts[b, f, :, :2] = pts + 0.3 + 0.25 * rng.integers(-2, 3, (3, 2))
+            verts[b, f, :, 2] = z
+    colors = rng.integers(0, 256, (_MIXED_FRAMES, n * 3, 3))
+    return (verts.reshape(_MIXED_FRAMES, n * 3, 3),
+            np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+            colors.astype(np.float32))
+
+
 GROUPED_CASES: Dict[str, Callable[[], Case]] = {
     "grouped_scattered_order": _scattered_order,
     "grouped_in_group_tie": _in_group_tie,
     "grouped_degenerate_occlusion": _degenerate_occlusion,
+    "grouped_mixed_tiles": lambda: grouped_mixed_tiles() + (96, 96),
 }
 
 # the interp-depth soup of voicepuppet_tpu/ops/raster_selftest.py:325
@@ -224,9 +293,10 @@ INTERP_CASES: Dict[str, Callable[[], Case]] = {
     "interp_soup": lambda: _soup_case(3),
 }
 
-# group sizes run through K4/K5 on every case: one member, the serving
-# size, and more members than a warp's lanes (two batches per group)
-GROUP_SIZES = (1, 4, 33)
+# group sizes run through K4/K5 on every case: one member, a group narrower
+# than its 4-lane tile, the serving size, 8-lane tiles, a full-warp tile,
+# and more members than a warp's lanes (two batches per group)
+GROUP_SIZES = (1, 3, 4, 8, 32, 33)
 
 # X3's (win, fb) settings: profile_raster_regacc.py's three variants
 REGACC_SETTINGS = ((16, 8), (16, 4), (8, 8))
@@ -393,9 +463,13 @@ def check_probes_against_plain(vertices: torch.Tensor,
 
 
 def _case_tensors(make, device):
+    """A case's arrays on ``device``; vertices and colours [V, 3] are one
+    frame, [B, V, 3] are B."""
     v, t, c, h, w = make()
-    vt = torch.as_tensor(v[None], device=device).contiguous()
-    ct = torch.as_tensor(c[None], device=device).contiguous()
+    vt = torch.as_tensor(v if v.ndim == 3 else v[None],
+                         device=device).contiguous()
+    ct = torch.as_tensor(c if c.ndim == 3 else c[None],
+                         device=device).contiguous()
     tt = torch.as_tensor(t, dtype=torch.int32, device=device)
     return vt, ct, tt, h, w
 
