@@ -41,7 +41,14 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         against the plain version, image within 1e-5, and
                         K5 equal to K3.
   6. kernel times       each kernel beside its plain version and its bound,
-                        at the shapes its path gives it; K4/K1 and K5/K3.
+                        at the shapes its path gives it; K4/K1 and K5/K3;
+                        K1 beside its former one-thread bbox walk (X2 at
+                        unroll 1, fb 1), bit for bit equal; one K1, K3 and
+                        old-walk call each split into its device launches
+                        (memset, pass 1, resolve) by torch.profiler, or a
+                        line saying it recorded none; the walk steps of
+                        both walks on these inputs (the CPU model of
+                        ops/raster_selftest.py).
   7. probe path         the raster A/B probes (ops/raster_probes.py): the
                         probe selftest on every quirk, grouped and interp
                         case and a band-fitting one; at the JAX profile
@@ -124,6 +131,32 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_split(fn, calls=5):
+    """The device launches of ``fn`` from torch.profiler with CUDA activity,
+    over ``calls`` warm calls: {launch: (count, mean us)} in order of first
+    appearance, or None when the profiler records no device event.  A
+    measurement, not a gate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in ("triangle_kernel", "unroll_kernel",
+                                 "resolve_kernel", "Memset") if k in evt.name),
+                    evt.name[:48])
+        n, total = split.get(name, (0, 0.0))
+        split[name] = (n + 1, total + evt.time_range.elapsed_us())
+    return {k: (n, round(t / n, 3)) for k, (n, t) in split.items()} or None
 
 
 def raster_bound_ms(verts, colors, tris, winner, h, w):
@@ -600,6 +633,50 @@ def main():
     log(f"raster B={CHUNK} ratios in this run: K4/K1 {k4_ms / k_ms:.3f} "
         f"(group 4, image and mask), K5/K3 {k5_ms / k3_ms:.3f} (group 4, "
         f"winner and depth); {card}")
+
+    # the in-run before: X2 at unroll 1, fb 1 is K1's former one-thread
+    # bbox walk; then each call split into its device launches
+    def old_walk():
+        return probes.raster_u(verts, tri, 224, 224, fb=1, unroll=1)
+
+    def k1_winner():
+        return tops.rasterize_winner(verts, tri, 224, 224)
+
+    with torch.inference_mode():
+        for a, b, part in zip(old_walk(), k1_winner(), ("winner", "depth")):
+            raster_selftest.expect_equal(a, b, f"old walk == K1 {part}")
+        k1w_ms = cuda_ms(k1_winner, 50, 5)
+        old_ms = cuda_ms(old_walk, 50, 5)
+        splits = {
+            "K1 render_colors_auto": lambda: render_colors_auto(
+                verts, colors, tri, h=224, w=224),
+            "K1 rasterize_winner": k1_winner,
+            "K3 rasterize_winner_interp": lambda: tops.rasterize_winner_interp(
+                verts, tri, 224, 224),
+            "old walk raster_u(unroll=1, fb=1)": old_walk,
+        }
+        for label, fn in splits.items():
+            split = device_split(fn)
+            log(f"split B={CHUNK}, {label}: "
+                + (json.dumps({k: {"launches": n, "mean_us": us}
+                               for k, (n, us) in split.items()})
+                   if split else "the profiler recorded no device event")
+                + f" (5 calls, torch.profiler); {card}")
+    log(f"raster B={CHUNK} winner + depth: K1 {k1w_ms:.4f} ms, the old "
+        f"one-thread walk (unroll_kernel<1,1>) {old_ms:.4f} ms, bit for bit "
+        f"equal; K1 / old {k1w_ms / old_ms:.3f}; {card}")
+    # the walk steps of these inputs (ops/raster_selftest.py's CPU model)
+    x0, y0, bw, bh = raster_selftest.walk_entries(verts.cpu().numpy(),
+                                                  tri.cpu().numpy(), 224, 224)
+    area = np.zeros(-(-bw.size // 32) * 32, np.int64)
+    area[:bw.size] = bw * bh
+    area = area.reshape(-1, 32)
+    old_steps, new_steps = int(area.max(1).sum()), int(
+        (-(-area.sum(1) // 32)).sum())
+    log(f"raster B={CHUNK} walk steps (CPU model): one-thread walk "
+        f"{old_steps} (lanes busy {area.sum() / (32 * old_steps):.3f}), "
+        f"balanced walk {new_steps} ({old_steps / new_steps:.3f}x fewer), "
+        f"{area.sum()} bbox px over {area.shape[0]} warps")
 
     # ---- 7. the probe path: X1-X3 and the A/B profile entry points ------
     t0 = time.perf_counter()

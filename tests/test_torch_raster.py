@@ -53,9 +53,15 @@ def mesh():
     return verts.copy(), tris, colors
 
 
+def _frames(a):
+    """Vertices or colours [V, 3] are one frame, [B, V, 3] are B."""
+    return a if a.ndim == 3 else a[None]
+
+
 def _port(verts, tris, colors, h, w, entry="auto"):
-    v = torch.from_numpy(np.ascontiguousarray(verts[None]))
-    c = torch.from_numpy(np.ascontiguousarray(colors[None]))
+    """(image, mask) of one frame [V, 3], or of B frames [B, V, 3]."""
+    v = torch.from_numpy(np.ascontiguousarray(_frames(verts)))
+    c = torch.from_numpy(np.ascontiguousarray(_frames(colors)))
     t = torch.from_numpy(np.array(tris, dtype=np.int32))
     if entry == "auto":
         img, mask = tops.render_colors_auto(v, c, t, h=h, w=w)
@@ -63,7 +69,20 @@ def _port(verts, tris, colors, h, w, entry="auto"):
         img, mask = tops.render_colors_kernel(v, c, t, h=h, w=w)
     else:
         img, mask = tops.render_colors_xband(v, c, t, h=h, w=w, guard=False)
-    return img[0].numpy(), mask[0].numpy()
+    if verts.ndim == 2:
+        return img[0].numpy(), mask[0].numpy()
+    return img.numpy(), mask.numpy()
+
+
+def spec_frame(verts, tris):
+    """One frame's vertices as the spec can take them: its integer bbox
+    cannot take a NaN corner, so each NaN-cornered triangle moves off the
+    canvas, where it draws nothing, as it draws nothing in the port.  (The
+    cases that carry NaN corners give every triangle its own vertices.)"""
+    v = verts.copy()
+    nan_tri = ~np.isfinite(v[tris]).all((1, 2))
+    v[tris[nan_tri].reshape(-1), :2] = -50.0
+    return v
 
 
 def _equal(got, want):
@@ -171,17 +190,23 @@ SPEC_CASES = {
     "seam_tie": lambda: _seam(3.0, 3.0),
     "edge_through_pixel_centers": case_edge_through_pixel_centers,
     "narrow_canvas": case_narrow_canvas,
+    # three frames: triangle_kernel's balanced-walk layout (its 224² form
+    # has edges through pixel centres: _BORDERLINE_CASES)
+    "walk_balance": tself.CASES["walk_balance"],
 }
 
 
 @pytest.mark.parametrize("name", sorted(SPEC_CASES))
 def test_port_raster_matches_sequential_spec(name):
     v, t, c, h, w = SPEC_CASES[name]()
-    want = jref.render_colors_ref(v, t, c, h, w)
-    assert want[1].sum() > 0
-    _equal(_port(v, t, c, h, w), want)
-    # the port's own copy of the spec is the same spec
-    _equal(tref.render_colors_ref(v, t, c, h, w), want)
+    got_img, got_mask = _port(_frames(v), t, _frames(c), h, w)
+    for b, (vb, cb) in enumerate(zip(_frames(v), _frames(c))):
+        vb = spec_frame(vb, t)
+        want = jref.render_colors_ref(vb, t, cb, h, w)
+        assert want[1].sum() > 0
+        _equal((got_img[b], got_mask[b]), want)
+        # the port's own copy of the spec is the same spec
+        _equal(tref.render_colors_ref(vb, t, cb, h, w), want)
 
 
 @pytest.mark.parametrize("name", ["mesh", "degenerate_truncation_tie",
@@ -193,10 +218,10 @@ def test_port_raster_matches_jax_xband_interpret(name):
     v, t, c, h, w = SPEC_CASES[name]()
     win = 48 if name.startswith("seam") else 16
     img, mask = jpallas.render_colors_xband_pallas(
-        v[None], c[None], t, h=h, w=w, win=win, interpret=True)
-    want = (np.asarray(img[0]), np.asarray(mask[0]))
+        _frames(v), _frames(c), t, h=h, w=w, win=win, interpret=True)
+    want = (np.asarray(img), np.asarray(mask))
     for entry in ("auto", "kernel", "xband"):
-        _equal(_port(v, t, c, h, w, entry), want)
+        _equal(_port(_frames(v), t, _frames(c), h, w, entry), want)
 
 
 @pytest.mark.parametrize("case", [case_soup, case_soup_xband],
@@ -248,6 +273,28 @@ def test_low_bit_y_mesh_against_spec_and_jax():
     assert 0 < len(got[1].nonzero()[0]) and len(bad) <= jself.MAX_BORDERLINE
     near = jself._borderline_pixels(v, t, 224, 224, eps=1e-4)
     assert all((int(y), int(x)) in near for y, x in bad), bad
+
+
+@pytest.mark.parametrize("name", ["walk_balance", "walk_balance_wide"])
+def test_walk_balance_against_jax_kernels(name):
+    """The balanced-walk case, three frames with NaN corners, through the
+    JAX per-triangle and x-band kernels in interpret mode: equal to the
+    port except at a bounded handful of pixels per frame, each within 1e-4
+    of an edge in float64 (XLA's CPU FMA; test_low_bit_y_mesh_against_spec
+    _and_jax)."""
+    v, t, c, h, w = tself.CASES[name]()
+    got_img, got_mask = _port(v, t, c, h, w)
+    for fn in (jpallas.render_colors_pallas,
+               jpallas.render_colors_xband_pallas):
+        img, mask = fn(v, c, t, h=h, w=w, interpret=True)
+        img, mask = np.asarray(img), np.asarray(mask)
+        for b in range(v.shape[0]):
+            bad = np.argwhere((got_mask[b] != mask[b])
+                              | (got_img[b] != img[b]).any(-1))
+            assert len(bad) <= jself.MAX_BORDERLINE, (fn.__name__, b, bad)
+            near = jself._borderline_pixels(spec_frame(v[b], t), t, h, w,
+                                            eps=1e-4)
+            assert all((int(y), int(x)) in near for y, x in bad), bad
 
 
 def test_winner_and_depth_match_jax_winner_kernel():
@@ -307,7 +354,8 @@ def test_selftest_generators_copy_the_jax_ones():
 # the spec's float64 barycentrics may part from float32 at pixels within
 # ~1e-5 of an edge (test_port_raster_on_random_soups)
 _BORDERLINE_CASES = ("soup", "tall_guard", "xband_soup",
-                     "xband_wide_triangle", "huge_triangle", "low_bit_y")
+                     "xband_wide_triangle", "huge_triangle", "low_bit_y",
+                     "walk_balance_wide")
 
 
 @pytest.mark.parametrize("name", sorted(tself.CASES))
@@ -317,13 +365,15 @@ def test_selftest_cases_plain_version_against_spec(name):
     bit for bit on the engineered cases, the selftest's f64-verified
     borderline contract on the soups."""
     v, t, c, h, w = tself.CASES[name]()
-    got = _port(v, t, c, h, w)
-    want = jref.render_colors_ref(v, t, c, h, w)
-    assert want[1].sum() > 0
-    status = jself._expect_match(got[0], got[1], want[0], want[1], v, t, h,
-                                 w, name)
-    if name not in _BORDERLINE_CASES:
-        assert status == "exact", status
+    got_img, got_mask = _port(_frames(v), t, _frames(c), h, w)
+    for b, (vb, cb) in enumerate(zip(_frames(v), _frames(c))):
+        vb = spec_frame(vb, t)
+        want = jref.render_colors_ref(vb, t, cb, h, w)
+        assert want[1].sum() > 0
+        status = jself._expect_match(got_img[b], got_mask[b], want[0],
+                                     want[1], vb, t, h, w, f"{name} {b}")
+        if name not in _BORDERLINE_CASES:
+            assert status == "exact", status
 
 
 def test_selftest_needs_cuda_tensors():
@@ -342,6 +392,20 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tops.RASTER(v, t, 8, 8)
     assert tops.RASTER.launches == 0
+
+
+def test_cuda_wrapper_size_limits():
+    """The kernels index pixels and entries in 32 bits, and the
+    per-triangle kernel sums 32 bbox areas of up to h x w each: so
+    max(B, 32) x h x w and B x F stay below 2^31."""
+    from voicepuppet_torch.ops.raster import _check_size
+    _check_size(1, 70688, 8191, 8191)
+    _check_size(32, 70688, 8191, 8191)
+    _check_size(32768, 65535, 8, 8)
+    for b, f, h, w in ((1, 3, 8192, 8192), (33, 3, 8191, 8191),
+                       (1, 2 ** 31, 8, 8), (1, 3, 0, 8)):
+        with pytest.raises(ValueError, match="unsupported raster size"):
+            _check_size(b, f, h, w)
 
 
 def test_device_bfm_refuses_triangle_indices_outside_the_mesh():
@@ -551,3 +615,160 @@ def test_grouped_entry_points_refuse_group_zero():
         with pytest.raises(ValueError, match="CUDA"):
             kernel(v, t, 8, 8, group=4 if kernel.grouped else 0)
         assert kernel.launches == 0
+
+
+# ---- K1/K3: triangle_kernel's balanced walk (the CPU model) -----------------
+
+_WALK_MESH = []
+
+
+def _mesh189_b2():
+    """The main path's 189² mesh at B = 2, decoded at 224² by the port's
+    own reconstruct_rotation with the head sway."""
+    if not _WALK_MESH:
+        from voicepuppet_torch.face3d import bfm as tbfm
+        from voicepuppet_torch.face3d import morph as tmorph
+        from voicepuppet_torch.pipeline.align import head_sway_angles
+        model = tbfm.synthetic_bfm(num_theta=189, num_phi=189)
+        fm = tmorph.device_bfm(model, "cpu")
+        coeff = torch.as_tensor(tbfm.demo_coeff(model, batch=2, seed=1))
+        angles = torch.as_tensor(head_sway_angles(2))
+        rec = tmorph.reconstruct_rotation(coeff, fm, angles, image_size=224.0)
+        verts = torch.cat([rec.face_projection, rec.z_buffer], -1)
+        _WALK_MESH.append((verts.numpy(), fm.tri.numpy()))
+    v, t = _WALK_MESH[0]
+    return v, t, 224, 224
+
+
+def _without_colors(make):
+    def case():
+        v, t, _, h, w = make()
+        return v, t, h, w
+    return case
+
+
+_WALK_CASES = {
+    "walk_balance": _without_colors(tself.CASES["walk_balance"]),
+    "walk_balance_wide": _without_colors(tself.CASES["walk_balance_wide"]),
+    "grouped_mixed_tiles": _without_colors(
+        tself.GROUPED_CASES["grouped_mixed_tiles"]),
+    "mesh189_b2": _mesh189_b2,
+}
+
+
+def _bboxes64(v, t, h, w, interp):
+    """Each entry's clipped bbox area in float64, apart from the model:
+    0 where the triangle cannot draw."""
+    c = v[:, t].astype(np.float64)                       # [B, F, 3, 3]
+    with np.errstate(invalid="ignore"):
+        x0 = np.maximum(np.ceil(c[..., 0].min(-1)), 0.0)
+        x1 = np.minimum(np.floor(c[..., 0].max(-1)), w - 1.0)
+        y0 = np.maximum(np.ceil(c[..., 1].min(-1)), 0.0)
+        y1 = np.minimum(np.floor(c[..., 1].max(-1)), h - 1.0)
+        live = (np.isfinite(c[..., :2]).all((-1, -2)) & (x1 >= x0)
+                & (y1 >= y0))
+        if not interp:
+            live &= traster._triangle_setup(
+                torch.from_numpy(v), torch.from_numpy(t)
+            )["depth"].numpy() > traster.DEPTH_INIT
+    area = np.where(live, (x1 - x0 + 1) * (y1 - y0 + 1), 0.0)
+    return area.reshape(-1).astype(np.int64)
+
+
+@pytest.mark.parametrize("interp", [False, True], ids=["flat", "interp"])
+@pytest.mark.parametrize("name", sorted(_WALK_CASES))
+def test_walk_schedule_visits_every_bbox_pixel_once(name, interp):
+    """The CPU model of triangle_kernel's walk (its scan, owner search and
+    q -> (x, y) mapping): every pixel of every live entry's clipped bbox is
+    visited exactly once, every fragment the plain version draws is among
+    the visits, and each warp takes ceil(sum of its 32 areas / 32) steps,
+    never more than the one-thread walk's largest bbox."""
+    v, t, h, w = _WALK_CASES[name]()
+    v = np.ascontiguousarray(v if v.ndim == 3 else v[None], np.float32)
+    t = np.asarray(t, np.int32)
+    x0, y0, bw, bh = tself.walk_entries(v, t, h, w, interp)
+    area = _bboxes64(v, t, h, w, interp)
+    np.testing.assert_array_equal(bw * bh, area)
+    entry, x, y, steps = tself.walk_schedule(x0, y0, bw, bh)
+    assert ((x >= x0[entry]) & (x < x0[entry] + bw[entry])
+            & (y >= y0[entry]) & (y < y0[entry] + bh[entry])).all()
+    # each (entry, bbox pixel) once: their row-major codes are 0 .. N-1
+    start = np.cumsum(area) - area
+    code = start[entry] + (y - y0[entry]) * bw[entry] + (x - x0[entry])
+    np.testing.assert_array_equal(np.sort(code), np.arange(area.sum()))
+    # every drawing fragment is visited
+    f = t.shape[0]
+    tri, pix, _ = traster._fragments(torch.from_numpy(v),
+                                     torch.from_numpy(t), h, w, interp)
+    frame = pix.numpy() // (h * w)
+    drawn = (frame * f + tri.numpy()) * (h * w) + pix.numpy() % (h * w)
+    visited = entry * (h * w) + y * w + x
+    assert np.isin(drawn, visited).all()
+    padded = np.zeros(steps.shape[0] * tself.WARP, np.int64)
+    padded[:area.shape[0]] = area
+    per_warp = padded.reshape(-1, tself.WARP)
+    np.testing.assert_array_equal(steps, -(-per_warp.sum(1) // tself.WARP))
+    assert (steps <= per_warp.max(1)).all()
+
+
+def test_bbox_position_is_exact():
+    """The kernel's division-free q -> (dy, dx): exact for every bbox width
+    1 ... 224 and every q < 224 w, and at widths and positions up to the
+    wrapper's limit (q < 2^31)."""
+    for width in range(1, 225):
+        q = np.arange(width * 224)
+        dy, dx = tself.bbox_position(q, np.full(q.shape, width))
+        np.testing.assert_array_equal(dy, q // width)
+        np.testing.assert_array_equal(dx, q % width)
+    rng = np.random.default_rng(0)
+    widths = np.concatenate([[1, 2, 3, 224, 225, 4096, 46341, 65535, 65536,
+                              2 ** 31 - 1], rng.integers(1, 2 ** 31, 2000)])
+    for width in widths:
+        q = np.concatenate([[0, 2 ** 31 - 1, 2 ** 31 - 2],
+                            rng.integers(0, 2 ** 31, 500)])
+        q = np.concatenate([q, q - q % width, q - q % width - 1])
+        q = q[q >= 0]
+        dy, dx = tself.bbox_position(q, np.full(q.shape, width))
+        np.testing.assert_array_equal(dy, q // width)
+        np.testing.assert_array_equal(dx, q % width)
+
+
+@pytest.mark.parametrize("name", ["walk_balance", "walk_balance_wide"])
+def test_walk_balance_holds_every_entry_kind(name):
+    """The balanced-walk case as triangle_kernel sees it, flat and
+    interpolated: warp 0 holds a bbox over 128 px, a degenerate triangle
+    that draws its whole bbox, a one-pixel bbox, empty entries (off each
+    side of the canvas, NaN corners, no pixel centre), and an exact depth
+    tie between two overlapping slots; warp 1 straddles two frames with
+    live entries in both; warp 2 has no live entry; the last warp is
+    ragged."""
+    v, t, _, h, w = tself.CASES[name]()
+    f = t.shape[0]
+    n = v.shape[0] * f
+    assert n % tself.WARP and -(-n // tself.WARP) == 4
+    setup = traster._triangle_setup(torch.from_numpy(v), torch.from_numpy(t))
+    depth = setup["depth"].numpy().reshape(-1)
+    degenerate = (setup["inv_deno"] == 0).numpy().reshape(-1)
+    tri, pix, _ = traster._fragments(torch.from_numpy(v),
+                                     torch.from_numpy(t), h, w, False)
+    drawn = np.bincount(pix.numpy() // (h * w) * f + tri.numpy(),
+                        minlength=n)
+    nan = ~np.isfinite(v[:, t]).all((-1, -2)).reshape(-1)
+    for interp in (False, True):
+        x0, y0, bw, bh = tself.walk_entries(v, t, h, w, interp)
+        area = bw * bh
+        lanes = np.arange(tself.WARP)
+        w0 = lanes
+        assert area[w0].max() > 128 and (area[w0] == 1).any()
+        deg = w0[degenerate[w0] & (area[w0] > 1)]
+        assert deg.size and (drawn[deg] == area[deg]).all()
+        assert (area[w0] == 0).sum() >= 8 and nan[w0].sum() >= 2
+        ties = [(i, j) for i in w0 for j in w0 if i < j and area[i]
+                and area[j] and depth[i] == depth[j]
+                and x0[i] <= x0[j] + bw[j] - 1 and x0[j] <= x0[i] + bw[i] - 1
+                and y0[i] <= y0[j] + bh[j] - 1 and y0[j] <= y0[i] + bh[i] - 1]
+        assert ties
+        w1 = 32 + lanes
+        assert len(set(w1 // f)) == 2
+        assert all(area[w1[w1 // f == b]].any() for b in set(w1 // f))
+        assert area[64 + lanes].sum() == 0

@@ -39,7 +39,7 @@ from voicepuppet_torch import ops as tops
 from voicepuppet_torch.face3d import raster as traster
 from voicepuppet_torch.ops import raster_selftest as tself
 
-from test_torch_raster import SPEC_CASES, case_soup_xband
+from test_torch_raster import SPEC_CASES, case_soup_xband, spec_frame
 
 torch.set_num_threads(1)
 
@@ -55,6 +55,9 @@ BORDERLINE = {
     "low_bit_y": tself.CASES["low_bit_y"],
     "seam_tie": SPEC_CASES["seam_tie"],
     "in_group_tie": tself.GROUPED_CASES["grouped_in_group_tie"],
+    # three frames each, an exact depth tie and NaN corners among them
+    "walk_balance": tself.CASES["walk_balance"],
+    "walk_balance_wide": tself.CASES["walk_balance_wide"],
 }
 SOUPS = ("interp_soup", "soup", "xband_soup")
 
@@ -157,24 +160,28 @@ def test_interp_borderline_pixels_proven_in_float64(name):
     in float64; soups hold the selftest's budget of 16 such pixels (the
     equal-depth meshes tie over whole overlaps, so their count is only
     reported).  Depth where winners agree: 1e-5 of JAX, 1e-4 of the
-    spec."""
+    spec.  A case of several frames is taken frame by frame; the spec and
+    the proofs get NaN-cornered triangles off the canvas (spec_frame)."""
     v, t, _, h, w = BORDERLINE[name]()
-    want_d, want_t, _ = _spec(v, t, h, w)
-    got_t, got_d = _port_interp(v, t, h, w)
-    gt4, gd4 = _port_interp(v, t, h, w, group=4)
-    np.testing.assert_array_equal(gt4, got_t)
-    np.testing.assert_array_equal(gd4, got_d)
-    refs = [("spec", want_t, want_d, 1e-4, jself.BORDERLINE_EPS)]
-    for g in (0, 4):
-        jt, jd = _jax_interp(v, t, h, w, group=g)
-        refs.append((f"jax group {g}", jt, jd, 1e-5, 1e-4))
-    for label, ref_t, ref_d, tol, eps in refs:
-        n_edge, n_tie = _prove_borderline(v, t, h, w, got_t, ref_t,
-                                          f"{name} vs {label}", eps)
-        if name in SOUPS:
-            assert n_edge + n_tie <= jself.MAX_BORDERLINE, (n_edge, n_tie)
-        agree = (got_t == ref_t) & (ref_t >= 0)
-        np.testing.assert_allclose(got_d[agree], ref_d[agree], atol=tol)
+    for vb in (v if v.ndim == 3 else v[None]):
+        sb = spec_frame(vb, t)
+        want_d, want_t, _ = _spec(sb, t, h, w)
+        got_t, got_d = _port_interp(vb, t, h, w)
+        gt4, gd4 = _port_interp(vb, t, h, w, group=4)
+        np.testing.assert_array_equal(gt4, got_t)
+        np.testing.assert_array_equal(gd4, got_d)
+        refs = [("spec", want_t, want_d, 1e-4, jself.BORDERLINE_EPS)]
+        for g in (0, 4):
+            jt, jd = _jax_interp(vb, t, h, w, group=g)
+            refs.append((f"jax group {g}", jt, jd, 1e-5, 1e-4))
+        for label, ref_t, ref_d, tol, eps in refs:
+            n_edge, n_tie = _prove_borderline(sb, t, h, w, got_t, ref_t,
+                                              f"{name} vs {label}", eps)
+            if name in SOUPS:
+                assert n_edge + n_tie <= jself.MAX_BORDERLINE, (n_edge,
+                                                                n_tie)
+            agree = (got_t == ref_t) & (ref_t >= 0)
+            np.testing.assert_allclose(got_d[agree], ref_d[agree], atol=tol)
 
 
 def test_tpu_grouped_interp_crops_tall_triangles_port_does_not():

@@ -28,10 +28,41 @@
 //           atomics land in.  -0.0 is made +0.0 first, because the key
 //           orders them while '>' does not; NaN and depths <= -99999 never
 //           draw.
-//             per-triangle (K1, K3): one thread per (frame, triangle) builds
-//           the setup (p0, edge vectors, dot products, inv_deno) in the
-//           operation order of face3d/raster_ref.py:_point_in_tri and walks
-//           its clipped integer bbox.
+//             per-triangle (K1, K3): lane j of a warp takes the (frame,
+//           triangle) entry first + j of the flat order b * F + f, builds
+//           its setup (p0, edge vectors, dot products, inv_deno, in the
+//           operation order of face3d/raster_ref.py:_point_in_tri) and stores
+//           it, with its bbox's magic number and its frame's offset, into the
+//           warp's shared slot j as five 16-byte words.  The warp scans the 32
+//           clipped bbox areas (0 for an entry that cannot draw) with
+//           shuffles, and then walks all 32 bboxes as one list of sum(area)
+//           pixels, 32 adjacent ones a step: lane j takes pixel r = base + j,
+//           finds its owner slot by a binary search over the 32 sums (5
+//           shared loads), loads the owner's slot (5 128-bit loads), and
+//           finds (x, y) from the row-major position q in the owner's bbox by
+//           one __umulhi with the magic number and one correction (no
+//           division per pixel).  A warp takes ceil(sum(area) / 32) steps.
+//             What bounds it: the earlier form gave each entry one thread
+//           that walked its bbox alone, so a warp took as long as its
+//           largest bbox; on the 189² mesh at 224² (bbox 4.8 px on average,
+//           54 at most) lanes did useful work in 31% of its steps, and the
+//           balanced walk takes 2.9x fewer.  Each step now pays the owner
+//           search, the slot loads and the mapping besides pixel_key, about
+//           twice the old step's work, so the walk gains less than 2.9x.
+//           The setup (index and vertex loads, the IEEE 1/deno, the magic
+//           number's division, the scan) is a fixed cost the walk does not
+//           touch, and the atomics cost little: on an H100, a setup-only
+//           form of this kernel took a large share of pass 1, and a form
+//           with one atomic per thread instead of one per fragment was no
+//           faster (one-off A/Bs; PERF.md).  Pass 1 of K1 takes ~0.05
+//           ms per chunk of 32 frames at 224² on an H100 80GB HBM3 at 700 W,
+//           the whole call (memset, pass 1, resolve) ~0.07-0.08 ms
+//           (chip_smoke.py; PERF.md).  The hazards, each marked where it
+//           sits: a warp leaves early only when all its entries are past
+//           B x F (the scan takes the full mask); a warp's entries may
+//           straddle frames, so each slot carries its own frame's offset;
+//           the sums are 32-bit, which the wrapper's limit
+//           max(B, 32) x H x W < 2^31 keeps from overflowing.
 //             grouped (K4, K5): one T-lane tile per (frame, group of G
 //           consecutive triangles), T the smallest power of two >=
 //           min(G, 32), 32/T tiles per warp.  Lane k of a tile builds member
@@ -80,10 +111,7 @@
 // triangles, plus, for the image, the colours of the winning triangles'
 // corners only, and writes 12.8 MB of winner/depth or 6.4 MB of image/mask;
 // the 12.8 MB scratch stays in the 50 MB L2.  That is about 10 us at
-// 3.35 TB/s (chip_smoke.py computes the bound from each run's inputs).  The
-// practical limit is L2 atomic throughput and the divergent bbox walks; a
-// later PR may replace the global atomics with a tile-binned shared-memory
-// z-buffer.
+// 3.35 TB/s (chip_smoke.py computes the bound from each run's inputs).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -202,24 +230,145 @@ __device__ __forceinline__ unsigned long long pixel_key(const Tri& t, int x,
   return ((unsigned long long)orderable(pd) << 32) | t.key;
 }
 
-template <bool INTERP>
-__global__ void triangle_kernel(const float* __restrict__ verts,
-                                const int* __restrict__ tris, int B, int V,
-                                int F, int H, int W,
-                                unsigned long long* __restrict__ zbuf) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * F) return;
-  const int b = (int)(idx / F);
-  const int f = (int)(idx - (long long)b * F);
+constexpr int kWalkWarps = 8;   // triangle_kernel's warps per block
+
+// One walk slot in shared memory: what the balanced walk reads of an entry,
+// as five 16-byte words, so a lane stores it with five 128-bit stores and
+// the walk loads it with five 128-bit loads (a Tri stored field by field at
+// its 80-byte stride would take four-way bank-conflicted stores).
+struct WalkSlot {
+  float4 w0;   // p0x, p0y, v0x, v0y
+  float4 w1;   // v1x, v1y, dot00, dot01
+  float4 w2;   // dot11, inv, z0, z1
+  float4 w3;   // z2, x0, x1, y0 (ints as bits)
+  float4 w4;   // magic, frame offset, key low, key high (bits)
+};
+
+// magic = floor((2^32 - 1) / w) + 1 for the bbox width w (0 at w = 1);
+// `off` = b * H * W, the key-buffer offset of the entry's frame.
+__device__ __forceinline__ void store_slot(WalkSlot& s, const Tri& t,
+                                           unsigned magic, int off) {
+  s.w0 = make_float4(t.p0x, t.p0y, t.v0x, t.v0y);
+  s.w1 = make_float4(t.v1x, t.v1y, t.dot00, t.dot01);
+  s.w2 = make_float4(t.dot11, t.inv, t.z0, t.z1);
+  s.w3 = make_float4(t.z2, __int_as_float(t.x0), __int_as_float(t.x1),
+                     __int_as_float(t.y0));
+  s.w4 = make_float4(__uint_as_float(magic), __int_as_float(off),
+                     __uint_as_float((uint32_t)t.key),
+                     __uint_as_float((uint32_t)(t.key >> 32)));
+}
+
+// The Tri that pixel_key reads (all but y1) and the slot's magic and
+// frame offset.
+__device__ __forceinline__ Tri load_slot(const WalkSlot& s, unsigned& magic,
+                                         int& off) {
+  const float4 w0 = s.w0, w1 = s.w1, w2 = s.w2, w3 = s.w3, w4 = s.w4;
   Tri t;
-  if (!tri_setup<INTERP>(verts + (size_t)b * V * 3, tris, f, V, H, W, t))
-    return;
-  unsigned long long* zb = zbuf + (size_t)b * H * W;
-  for (int y = t.y0; y <= t.y1; ++y) {
-    for (int x = t.x0; x <= t.x1; ++x) {
-      const unsigned long long key = pixel_key<INTERP>(t, x, y, H, W);
-      if (key) atomicMax(zb + (size_t)y * W + x, key);
+  t.p0x = w0.x;
+  t.p0y = w0.y;
+  t.v0x = w0.z;
+  t.v0y = w0.w;
+  t.v1x = w1.x;
+  t.v1y = w1.y;
+  t.dot00 = w1.z;
+  t.dot01 = w1.w;
+  t.dot11 = w2.x;
+  t.inv = w2.y;
+  t.z0 = w2.z;
+  t.z1 = w2.w;
+  t.z2 = w3.x;
+  t.x0 = __float_as_int(w3.y);
+  t.x1 = __float_as_int(w3.z);
+  t.y0 = __float_as_int(w3.w);
+  t.y1 = t.y0;   // not stored: pixel_key does not read it
+  magic = __float_as_uint(w4.x);
+  off = __float_as_int(w4.y);
+  t.key = ((unsigned long long)__float_as_uint(w4.w) << 32) |
+          __float_as_uint(w4.z);
+  return t;
+}
+
+// K1/K3: one warp per 32 consecutive (frame, triangle) entries, whose bbox
+// pixels its 32 lanes walk together, 32 adjacent pixels a step (header
+// note).
+template <bool INTERP>
+__global__ void __launch_bounds__(32 * kWalkWarps)
+triangle_kernel(const float* __restrict__ verts,
+                const int* __restrict__ tris, int B, int V, int F, int H,
+                int W, unsigned long long* __restrict__ zbuf) {
+  __shared__ WalkSlot slots[kWalkWarps][32];
+  __shared__ unsigned ends[kWalkWarps][32];    // inclusive sums of areas
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n = (long long)B * F;
+  const long long first = ((long long)blockIdx.x * kWalkWarps + warp) * 32;
+  // Scan hazard: only a warp whose first entry is past the end leaves; the
+  // scan below takes the full mask, so a lane past the end stays in with
+  // area 0.
+  if (first >= n) return;
+  const long long idx = first + lane;
+  unsigned area = 0;
+  if (idx < n) {
+    // Straddle hazard: a warp's entries may lie in two or more frames, so
+    // each slot carries its own frame's key-buffer offset.  idx < B * F <
+    // 2^31 (the wrapper): 32-bit arithmetic.
+    const int i = (int)idx;
+    const int b = i / F;
+    const int f = i - b * F;
+    Tri t;
+    if (tri_setup<INTERP>(verts + (size_t)b * V * 3, tris, f, V, H, W,
+                          t)) {
+      const int w = t.x1 - t.x0 + 1;
+      area = (unsigned)(w * (t.y1 - t.y0 + 1));   // <= H * W
+      // floor((2^32 - 1) / w) + 1 wraps to 0 at w = 1 only
+      store_slot(slots[warp][lane], t, 0xFFFFFFFFu / (unsigned)w + 1u,
+                 b * H * W);
     }
+  }
+  // Inclusive scan of the areas in 32 bits: one degenerate triangle's bbox
+  // may be the whole canvas, but the wrapper admits 32 * H * W < 2^31 only,
+  // so a warp's total, and every pixel index r + 32 below, stays < 2^32.
+  unsigned end = area;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned up = __shfl_up_sync(0xFFFFFFFFu, end, d);
+    if (lane >= d) end += up;
+  }
+  ends[warp][lane] = end;
+  const unsigned total = __shfl_sync(0xFFFFFFFFu, end, 31);
+  __syncwarp();   // the slots and sums are read by every lane below
+  const unsigned* e = ends[warp];
+  // No shuffle from here on: the last step's lanes past `total` leave.
+  for (unsigned r = lane; r < total; r += 32) {
+    // the owner: the first slot whose sum exceeds r (a slot that drew
+    // nothing adds 0 and is never one); `start` is the sum before it
+    int o = 0;
+    unsigned start = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const unsigned v = e[o + s - 1];
+      if (v <= r) {
+        o += s;
+        start = v;
+      }
+    }
+    unsigned m;
+    int off;
+    const Tri t = load_slot(slots[warp][o], m, off);
+    // row-major position q < w * h of the owner's bbox; with
+    // m = floor((2^32 - 1) / w) + 1, umulhi(q, m) is floor(q / w) or one
+    // more for every q < 2^31, so one correction makes it exact (unsigned:
+    // dy * w may pass 2^31 before it)
+    const unsigned q = r - start;
+    const unsigned w = (unsigned)(t.x1 - t.x0 + 1);
+    int dy = (int)(m ? __umulhi(q, m) : q);
+    int dx = (int)(q - (unsigned)dy * w);
+    if (dx < 0) {
+      --dy;
+      dx += (int)w;
+    }
+    const int x = t.x0 + dx, y = t.y0 + dy;
+    const unsigned long long key = pixel_key<INTERP>(t, x, y, H, W);
+    if (key) atomicMax(zbuf + off + (size_t)y * W + x, key);
   }
 }
 
@@ -633,7 +782,7 @@ cudaError_t launch_pass1(const float* vertices, const int* triangles, int B,
                          int V, int F, int H, int W, int group,
                          unsigned long long* z, cudaStream_t s) {
   if (group <= 0) {
-    const int threads = 256;
+    const int threads = 32 * kWalkWarps;
     const long long nt = (long long)B * F;
     triangle_kernel<INTERP>
         <<<(unsigned)((nt + threads - 1) / threads), threads, 0, s>>>(

@@ -194,9 +194,16 @@ def _check(vertices, triangles, h, w):
                          f"{tuple(triangles.shape)}")
     b, v, _ = vertices.shape
     f = triangles.shape[0]
-    if h <= 0 or w <= 0 or b * h * w >= 2 ** 31 or b * f >= 2 ** 31:
-        raise ValueError(f"unsupported raster size B={b} F={f} {h}x{w}")
+    _check_size(b, f, h, w)
     return b, v, f
+
+
+def _check_size(b: int, f: int, h: int, w: int):
+    """The sizes the kernels index in 32 bits: B x h x w pixels and B x F
+    entries below 2^31, and 32 x h x w too, since the per-triangle kernel
+    sums the bbox areas of a warp's 32 entries (each at most h x w)."""
+    if h <= 0 or w <= 0 or max(b, 32) * h * w >= 2 ** 31 or b * f >= 2 ** 31:
+        raise ValueError(f"unsupported raster size B={b} F={f} {h}x{w}")
 
 
 RASTER = RasterKernel("raster_flat", interp=False, grouped=False)

@@ -8,7 +8,10 @@ low-bit-y mesh, an edge through pixel centres, a narrow canvas, random
 soups, triangles taller or wider than 128 px, a triangle order with no
 screen locality and an in-group depth tie; and, of the port's own, a
 three-frame case that puts every kind of K4/K5 tile into one warp
-(``grouped_mixed_tiles``).
+(``grouped_mixed_tiles``) and one, at 96² and 224², that lays out the
+warps of K1/K3's balanced walk (``walk_balance``: large, degenerate,
+one-pixel, empty, NaN-cornered and tied entries in one warp, warps across
+frames, a warp with nothing to draw, a ragged last warp).
 
 ``run_selftest(device)`` builds each case on ``device`` and holds every
 CUDA kernel, through every entry point of ``ops/raster.py``, against its
@@ -29,6 +32,10 @@ case: X1 in both modes, X2 at every (fb, unroll), X3 at each of
 ``REGACC_SETTINGS``, each bit for bit against its plain version, X2 and
 X1 (off degenerate winners) against K1, and X3 against K1 where every
 chunk fits its band.
+
+``walk_entries``, ``walk_schedule`` and ``bbox_position`` are a CPU model
+of K1/K3's warp schedule (``triangle_kernel`` in ``csrc/raster.cu``) for
+the tests: which bbox pixels each warp's lanes visit, in how many steps.
 """
 
 from __future__ import annotations
@@ -164,6 +171,91 @@ def _low_bit_y() -> Case:
     return v, t, c, 224, 224
 
 
+WALK_FRAMES, WALK_TRIS = 3, 37
+# triangle_kernel's warps at F = 37 over 3 frames (entry b * 37 + f):
+#   0: frame 0, 0-31          the mix below
+#   1: frame 0, 32-36 + frame 1, 0-26   straddles frames
+#   2: frame 1, 27-36 + frame 2, 0-21   no live triangle
+#   3: frame 2, 22-36         ragged: 15 entries
+# The drawing triangles of a 96² canvas (doubled at 224²): corners and
+# flat depth; each frame moves each one by its own quarter pixels.
+_WALK_DRAWING = {
+    0: ([[6.3, 8.3], [70.3, 20.3], [30.3, 66.3]], 4.0),     # bbox 65 x 58
+    # degenerate: p2 - p0 = 2 (p1 - p0) exactly, so deno == 0 and the whole
+    # 16 x 8 bbox draws
+    1: ([[10.25, 20.25], [18.25, 24.25], [26.25, 28.25]], 7.0),
+    # an exact depth tie across two slots over an overlap
+    2: ([[40.3, 10.3], [56.3, 14.3], [44.3, 26.3]], 6.0),
+    3: ([[40.55, 10.3], [56.55, 14.3], [44.55, 26.3]], 6.0),
+    # one pixel centre in its bbox at either size; it does not move
+    4: ([[40.9, 40.9], [41.3, 41.0], [41.0, 41.3]], 9.0),
+    # behind the depth init: dead in K1, walked in K3, drawing in neither
+    11: ([[20.3, 60.3], [34.3, 62.3], [24.3, 74.3]], -2e5),
+}
+# the slots of warps 0 and 1 that take the eight empty kinds below
+_WALK_EMPTY_SLOTS = (5, 6, 7, 8, 9, 10, 12, 13)
+
+
+def _walk_empty(kind: int, size: int) -> list:
+    """Eight triangles that never draw, in K1 or K3, on a size² canvas."""
+    s = float(size)
+    return [
+        [[-30.0, 40.0], [-20.0, 40.0], [-25.0, 48.0]],          # left of it
+        [[s + 5.0, 40.0], [s + 15.0, 40.0], [s + 9.0, 48.0]],   # right
+        [[40.0, -20.0], [50.0, -20.0], [45.0, -12.0]],          # above
+        [[40.0, s + 4.0], [50.0, s + 4.0], [45.0, s + 12.0]],   # below
+        [[np.nan, 40.0], [50.0, 40.0], [45.0, 48.0]],           # NaN x
+        [[70.0, 40.0], [80.0, np.nan], [75.0, 48.0]],           # NaN y
+        [[60.2, 30.2], [60.7, 30.4], [60.4, 30.8]],   # no pixel centre
+        [[30.0, 50.5], [40.0, 50.5], [35.0, 50.5]],   # degenerate, no row
+    ][kind % 8]
+
+
+def walk_balance(size: int = W) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Three frames of 37 triangles for a size² canvas (96 or 224) ->
+    (vertices [3,111,3], triangles [37,3], colours [3,111,3]), laid out for
+    triangle_kernel's balanced walk (the table above).  Warp 0 mixes a
+    triangle whose bbox is 65 x 58 px (130 x 116 at 224²), a degenerate
+    one covering its whole bbox, a one-pixel one, an exact depth tie
+    across two slots, a bbox-empty sliver, triangles off each side of the
+    canvas, NaN-cornered ones and one behind the depth init, among a soup
+    of 2-14 px triangles; warp 1 holds the same mix moved; warp 2 holds no
+    live triangle; warp 3 is ragged."""
+    rng = np.random.default_rng(17)
+    scale = 1.0 if size < 2 * W else 2.0
+    verts = np.zeros((WALK_FRAMES, WALK_TRIS, 3, 3), np.float32)
+    anchor = rng.uniform(4.0, 78.0, (WALK_TRIS, 2))
+    span = rng.uniform(1.0, 13.0, (WALK_TRIS, 2, 2))
+    soup_z = rng.permutation(WALK_TRIS) * 0.25 + 1.0
+    for b in range(WALK_FRAMES):
+        shift = 0.25 * rng.integers(-2, 3, (WALK_TRIS, 2))
+        shift[3] = shift[2]                      # the tie moves as one
+        shift[4] = 0.0
+        for f in range(WALK_TRIS):
+            if (b == 1 and f >= 27) or (b == 2 and f <= 21):   # warp 2
+                verts[b, f, :, :2] = _walk_empty(f, size)
+                verts[b, f, :, 2] = 1.0
+            elif f in _WALK_EMPTY_SLOTS:
+                verts[b, f, :, :2] = _walk_empty(
+                    _WALK_EMPTY_SLOTS.index(f), size)
+                verts[b, f, :, 2] = 1.0
+            else:
+                if f in _WALK_DRAWING:
+                    pts, z = _WALK_DRAWING[f]
+                    off = 0.0
+                else:
+                    pts = np.concatenate([anchor[f, None],
+                                          anchor[f, None] + span[f]])
+                    pts, z, off = np.floor(pts * 4.0) / 4.0, soup_z[f], 0.3
+                # quarter-pixel corners, the soup's nudged off pixel centres
+                verts[b, f, :, :2] = (np.array(pts) + shift[f]) * scale + off
+                verts[b, f, :, 2] = z
+    colors = rng.integers(0, 256, (WALK_FRAMES, WALK_TRIS * 3, 3))
+    return (verts.reshape(WALK_FRAMES, WALK_TRIS * 3, 3),
+            np.arange(3 * WALK_TRIS, dtype=np.int32).reshape(WALK_TRIS, 3),
+            colors.astype(np.float32))
+
+
 CASES: Dict[str, Callable[[], Case]] = {
     "soup": lambda: _soup_case(0),
     "tall_guard": _tall_guard,
@@ -178,6 +270,8 @@ CASES: Dict[str, Callable[[], Case]] = {
     "edge_through_pixel_centers": _edge_through_pixel_centers,
     "narrow_canvas": _narrow_canvas,
     "low_bit_y": _low_bit_y,
+    "walk_balance": lambda: walk_balance(W) + (W, W),
+    "walk_balance_wide": lambda: walk_balance(WIDE_W) + (WIDE_W, WIDE_W),
 }
 
 
@@ -499,3 +593,82 @@ def run_probe_selftest(device="cuda") -> Dict[str, int]:
         report[name] = check_probes_against_plain(
             vt, tt, h, w, name, band_fits=name in PROBE_CASES)
     return report
+
+
+# ---- a CPU model of triangle_kernel's balanced walk (used by the tests) ----
+
+WARP = 32
+
+
+def walk_entries(vertices: np.ndarray, triangles: np.ndarray, h: int, w: int,
+                 interp: bool = False) -> Tuple[np.ndarray, ...]:
+    """tri_setup's verdict on every (frame, triangle) entry, in the kernel's
+    flat order b * F + f: (x0, y0, width, height) of the clipped bbox,
+    width = height = 0 for an entry that cannot draw (an index outside the
+    mesh, a NaN or infinite corner, an empty bbox and, for the flat depth,
+    a depth at or below the init).  Float32 throughout, as the kernel."""
+    v = np.asarray(vertices, np.float32)
+    v = v if v.ndim == 3 else v[None]
+    t = np.asarray(triangles).astype(np.int64)
+    ok = ((t >= 0) & (t < v.shape[1])).all(1)
+    c = v[:, np.where(ok[:, None], t, 0)]                  # [B, F, 3, 3]
+    xs, ys, zs = c[..., 0], c[..., 1], c[..., 2]
+    with np.errstate(invalid="ignore"):
+        x0 = np.maximum(np.ceil(xs.min(-1)), np.float32(0))
+        x1 = np.minimum(np.floor(xs.max(-1)), np.float32(w - 1))
+        y0 = np.maximum(np.ceil(ys.min(-1)), np.float32(0))
+        y1 = np.minimum(np.floor(ys.max(-1)), np.float32(h - 1))
+        live = (ok & np.isfinite(xs).all(-1) & np.isfinite(ys).all(-1)
+                & (x1 >= x0) & (y1 >= y0))
+        if not interp:
+            depth = (zs[..., 0] + zs[..., 1] + zs[..., 2]) * np.float32(1 / 3)
+            live &= depth > np.float32(-99999.0)
+    x0, y0 = np.where(live, x0, 0), np.where(live, y0, 0)
+    bw = np.where(live, x1 - x0 + 1, 0)
+    bh = np.where(live, y1 - y0 + 1, 0)
+    return tuple(a.reshape(-1).astype(np.int64) for a in (x0, y0, bw, bh))
+
+
+def bbox_position(q: np.ndarray, width: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's row-major position q -> (dy, dx) in a bbox ``width``
+    pixels wide, for 0 <= q < 2^31: the magic number
+    m = floor((2^32 - 1) / w) + 1 (0 at w = 1, where dy = q), dy the high
+    32 bits of q * m, then one correction where dx < 0."""
+    q = np.asarray(q, np.uint64)
+    wu = np.asarray(width, np.uint64)
+    m = (np.uint64(0xFFFFFFFF) // wu + np.uint64(1)) & np.uint64(0xFFFFFFFF)
+    dy = np.where(m != 0, (q * m) >> np.uint64(32), q).astype(np.int64)
+    dx = q.astype(np.int64) - dy * wu.astype(np.int64)
+    under = dx < 0
+    return dy - under, dx + under * wu.astype(np.int64)
+
+
+def walk_schedule(x0: np.ndarray, y0: np.ndarray, bw: np.ndarray,
+                  bh: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """triangle_kernel's walk over the entries of :func:`walk_entries`:
+    each warp of 32 entries scans their bbox areas, then lane j takes pixel
+    r = base + j of the warp's list for base = 0, 32, ... below the total,
+    finds its owner slot by the kernel's binary search over the 32 sums,
+    and its pixel by :func:`bbox_position`.  Returns (entry, x, y) of every
+    pixel visited, and each warp's step count."""
+    n = bw.shape[0]
+    nw = -(-n // WARP)
+    area = np.zeros(nw * WARP, np.int64)
+    area[:n] = bw * bh
+    ends = np.cumsum(area.reshape(nw, WARP), 1)          # the warp's scan
+    total = ends[:, -1]
+    warp = np.repeat(np.arange(nw), total)
+    r = np.arange(warp.shape[0]) - np.repeat(np.cumsum(total) - total, total)
+    o = np.zeros_like(r)
+    start = np.zeros_like(r)
+    for s in (16, 8, 4, 2, 1):
+        e = ends[warp, o + s - 1]
+        take = e <= r
+        o = np.where(take, o + s, o)
+        start = np.where(take, e, start)
+    entry = warp * WARP + o
+    dy, dx = bbox_position(r - start, bw[entry])
+    steps = np.zeros(nw, np.int64)
+    np.maximum.at(steps, warp, r // WARP + 1)
+    return entry, x0[entry] + dx, y0[entry] + dy, steps
