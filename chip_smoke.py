@@ -65,6 +65,34 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         served bf16 generator against its float32 weights on
                         the card at full width, with a bf16-BN-moments
                         control that the band must reject.
+  9. TF oracle          the TF-written BFMNet checkpoint of
+                        tests/fixtures/tf_oracle/ (242 variables) through the
+                        port's loader, on the card against TensorFlow's
+                        coefficients: mean < 1e-4, max < 1e-3.
+ 10. released weights   the main path's weights written as V2 bundles and as
+                        TF-named npz files (write_bundle, export_arrays),
+                        loaded by from_tf_checkpoints and from_npz:
+                        state_dicts equal the source, the 55 frames
+                        byte-identical to the main path's, K1 once per
+                        chunk; sizes, read time, frames/s.
+ 11. R-Net              ResNet-50 + 257 head at 224² from seeded weights (BN
+                        moments calibrated on a random batch), written as a
+                        frozen GraphDef and an npz, loaded by from_pb and
+                        from_npz: the card against the CPU on a face photo's
+                        crop (sat_alignment + align_for_identity), ms per
+                        image, and that identity served through K1.
+ 12. serving leftovers  bfmnet_dtype=bfloat16 against float32 (0 < d < 0.05 x
+                        scale + 1e-3, coefficient program ms of each); the
+                        rgb8 and yuv420 drains at drain_workers 1 and 2
+                        (frames/s, host ms per chunk; rgb8 luma within 1.5
+                        codes of yuv420's); estimate_chunk_compute beside the
+                        profiler's sum of the frame program; the corner-cache
+                        decode against the gather decode (1e-5 of scale) and
+                        the device ms of each.
+ 13. mesh video         infer_bfmnet: the 55-frame clip as a 672² mesh video,
+                        K1 once per chunk of 8; K1 at 672², B = 8, bit for
+                        bit against its plain version, its time, bound and
+                        ratio.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that did not launch fails the script.
@@ -99,6 +127,13 @@ PROBE_BATCH = 16            # the JAX profile scripts' B
 # bf16 generator vs float32, mean |diff| in 8-bit codes at full width: the
 # served path read 0.145 on an H100, with the BN moments in bf16 0.227
 GEN_BF16_MEAN_CODES = 0.185
+ORACLE_MEAN, ORACLE_MAX = 1e-4, 1e-3   # tests/test_tf_oracle.py
+# R-Net card vs CPU, both float32 (TF32 off): max |diff| over the scale of
+# the coefficients; the CPU tests hold the port to JAX within 1e-5 of it
+RNET_REL_BAND = 1e-4
+RGB8_LUMA_MEAN = 1.5        # mean |luma(rgb8) - luma(yuv420)| in codes
+CORNER_REL_BAND = 1e-5      # tests/test_torch_port_units.py
+VIDEO_SIZE, VIDEO_CHUNK = 672, 8
 
 
 def log(msg):
@@ -274,6 +309,388 @@ def frame_diff(a, b):
     d = np.abs(a.astype(np.int16) - b.astype(np.int16))
     return float(d.mean()), float((d > 1).mean()), int(d.max())
 
+
+
+def phase_tf_oracle(dev):
+    """9. The TF-written BFMNet checkpoint through the port's loader on the
+    card, against the coefficients TensorFlow computed."""
+    import numpy as np
+    import torch
+    from voicepuppet_torch.audio.frontend import full_fp32_matmuls
+    from voicepuppet_torch.config import BFMNetConfig
+    from voicepuppet_torch.models.bfmnet import BFMNet
+    from voicepuppet_torch.tools import tf_checkpoint as tfc
+    full_fp32_matmuls()
+    fix = os.path.join(HERE, "tests", "fixtures", "tf_oracle")
+    z = np.load(os.path.join(fix, "bfmnet.npz"))
+    net = BFMNet(BFMNetConfig(thinresnet_output_channels=32,
+                              encode_embedding_size=32, rnn_hidden_size=32,
+                              backbone_width_mult=0.25))
+    state, loaded, missing = tfc.load_bfmnet_ckpt(
+        os.path.join(fix, "bfmnet_ckpt", "model-65000"), net)
+    if missing or len(loaded) != 242:
+        raise AssertionError(f"TF oracle checkpoint: {len(loaded)} loaded, "
+                             f"missing {missing[:3]}")
+    net.load_state_dict(state)
+    net.to(dev).eval()
+    with torch.inference_mode():
+        out = net(*(torch.as_tensor(z[k], device=dev)
+                    for k in ("ears", "mfccs", "seq_len"))).cpu().numpy()
+    d = np.abs(out - z["coeff"])
+    log(f"tf oracle: TF-written BFMNet checkpoint, {len(loaded)}/242 "
+        f"variables, on the card vs TensorFlow's coefficients: mean |diff| "
+        f"{d.mean():.3g} (band {ORACLE_MEAN}), max {d.max():.3g} (band "
+        f"{ORACLE_MAX})")
+    if not (d.mean() < ORACLE_MEAN and d.max() < ORACLE_MAX):
+        raise AssertionError(f"TF oracle off by mean {d.mean()} max "
+                             f"{d.max()}")
+
+
+def phase_released_weights(cfg, face_model, trees, panel, pcm, identity,
+                           want_frames, counts, reset_counts, n_chunks,
+                           card):
+    """10. Full-width weights written as the reference ships them (a V2
+    bundle per model) and as TF-named npz files, loaded through
+    from_tf_checkpoints and from_npz: the state_dicts equal the source
+    tensor for tensor, the frames equal the source Synthesizer's byte for
+    byte."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voicepuppet_torch.pipeline import synthesize as syn
+    from voicepuppet_torch.tools import tf_bundle as tb
+    from voicepuppet_torch.tools import tf_checkpoint as tfc
+    bfm_state, g_state = trees
+    arrays = {"bfmnet": tfc.export_arrays(bfm_state,
+                                          tfc.bfmnet_rows(bfm_state)),
+              "pixrefer": tfc.export_arrays(
+                  g_state, tfc.pixrefer_generator_name_map())}
+    with tempfile.TemporaryDirectory() as td:
+        prefix, npz, sizes = {}, {}, {}
+        t0 = time.perf_counter()
+        for name, arr in arrays.items():
+            prefix[name] = os.path.join(td, f"ckpt_{name}", f"{name}-1")
+            tb.write_bundle(arr, prefix[name])
+            npz[name] = os.path.join(td, f"{name}.npz")
+            np.savez(npz[name], **{k.replace("/", "|"): v
+                                   for k, v in arr.items()})
+            sizes[name] = round(sum(
+                os.path.getsize(os.path.join(os.path.dirname(prefix[name]),
+                                             f)) for f in os.listdir(
+                    os.path.dirname(prefix[name]))) / 1e6, 3)
+        write_s = time.perf_counter() - t0
+        loads = {}
+        for source in ("tf", "npz"):
+            t0 = time.perf_counter()
+            if source == "tf":
+                states = syn.SynthesisAssets.load_tf_weights(
+                    cfg, prefix["bfmnet"], prefix["pixrefer"])
+            else:
+                states = syn.SynthesisAssets.load_npz_weights(
+                    cfg, npz["bfmnet"], npz["pixrefer"])
+            loads[source] = time.perf_counter() - t0
+            for got, want, what in ((states[0], bfm_state, "bfmnet"),
+                                    (states[1], g_state, "generator")):
+                if set(got) != set(want) or not all(
+                        torch.equal(got[k], want[k]) for k in want):
+                    raise AssertionError(f"{source} {what} state_dict "
+                                         "differs from the source")
+            t0 = time.perf_counter()
+            synth = (syn.SynthesisAssets.from_tf_checkpoints(
+                cfg, prefix["bfmnet"], prefix["pixrefer"],
+                face_model=face_model, chunk=CHUNK) if source == "tf" else
+                syn.SynthesisAssets.from_npz(
+                    cfg, npz["bfmnet"], npz["pixrefer"],
+                    face_model=face_model, chunk=CHUNK))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            reset_counts()
+            got_frames = synth.synthesize(panel, pcm, identity)
+            launched = counts()
+            if (launched["raster_flat"] != n_chunks
+                    or sum(launched.values()) != n_chunks):
+                raise AssertionError(f"{source} path launches {launched}")
+            if not np.array_equal(got_frames, want_frames):
+                d = np.abs(got_frames.astype(np.int16)
+                           - want_frames.astype(np.int16))
+                raise AssertionError(f"{source} frames differ from the "
+                                     f"source Synthesizer's: max {d.max()}, "
+                                     f"{int((d > 0).sum())} values")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                synth.synthesize(panel, pcm, identity)
+                times.append(time.perf_counter() - t0)
+            synth.close()
+            del synth
+            fps = sorted(FRAMES / t for t in times)
+            log(f"released weights ({source}): state_dicts equal the "
+                f"source tensor for tensor, {FRAMES} frames byte-identical "
+                f"to the source Synthesizer's, K1 launches "
+                f"{launched['raster_flat']}; read {loads[source]:.3f} s, "
+                f"Synthesizer built in {build_s:.3f} s; frames/s "
+                f"{json.dumps([round(f, 2) for f in fps])} (median "
+                f"{fps[1]:.2f}), {card}")
+    log(f"released weights: bundles bfmnet {sizes['bfmnet']} MB, pixrefer "
+        f"G {sizes['pixrefer']} MB (ngf {cfg.pixrefer.ngf}, "
+        f"{cfg.pixrefer.img_size}²), written with npz twins in "
+        f"{write_s:.3f} s")
+
+
+def phase_rnet(cfg, synth, panel, pcm, dev, counts, reset_counts,
+               n_chunks, card):
+    """11. The R-Net at full width (ResNet-50 at 224²) from a frozen
+    GraphDef and an npz of seeded weights: the card against the CPU, then
+    a face photo's identity served through K1."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voicepuppet_torch.pipeline import detect, rnet
+    from voicepuppet_torch.pipeline import synthesize as syn
+    from voicepuppet_torch.tools import tf_bundle as tb
+    gen = torch.Generator().manual_seed(SEED + 5)
+    calib = torch.rand((2, 224, 224, 3), generator=gen) * 255.0
+    net = rnet.init_rnet_(rnet.RNet(), gen, calib)
+    arrays = rnet.export_rnet_arrays(net.state_dict())
+    lm3d = np.random.RandomState(SEED + 6).randn(5, 3) * 0.3
+    s = cfg.pixrefer.img_size
+    photo = panel[:, :s]
+    with tempfile.TemporaryDirectory() as td:
+        pb = os.path.join(td, "FaceReconModel.pb")
+        tb.write_graphdef_consts(arrays, pb)
+        np.savez(os.path.join(td, "rnet.npz"),
+                 **{k.replace("/", "|"): v for k, v in arrays.items()})
+        on_card = rnet.RNetIdentityProvider.from_pb(pb, lm3d, device=dev)
+        from_npz = rnet.RNetIdentityProvider.from_npz(
+            os.path.join(td, "rnet.npz"), lm3d, device=dev)
+        on_cpu = rnet.RNetIdentityProvider.from_pb(pb, lm3d, device="cpu")
+        pb_mb = os.path.getsize(pb) / 1e6
+    for a, b in zip(on_card.model.state_dict().values(),
+                    from_npz.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError("R-Net from_pb and from_npz differ")
+    aligned = detect.sat_alignment(photo, detect.CenteredFaceProvider())
+    ident = on_card(*aligned[2:])
+    want = on_cpu(*aligned[2:])
+    scale = float(np.abs(want.bfmcoeff).max())
+    err = float(np.abs(ident.bfmcoeff - want.bfmcoeff).max())
+    if not (np.isfinite(ident.bfmcoeff).all()
+            and err <= RNET_REL_BAND * max(scale, 1.0)):
+        raise AssertionError(f"R-Net card vs CPU max |diff| {err} at scale "
+                             f"{scale}")
+    x = torch.rand((1, 224, 224, 3), generator=gen).to(dev) * 255.0
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: on_card.model(x), 20, 3)
+    log(f"rnet: ResNet-50 + 257 head at 224², {pb_mb:.1f} MB GraphDef, "
+        f"from_pb == from_npz; card vs CPU max |diff| {err:.3g} on "
+        f"coefficients of scale {scale:.3g} (band {RNET_REL_BAND} x "
+        f"max(scale, 1)); {ms:.4f} ms per image (B = 1), {card}")
+    reset_counts()
+    frames = synth.synthesize(panel, pcm, ident)
+    launched = counts()
+    if (launched["raster_flat"] != n_chunks
+            or sum(launched.values()) != n_chunks):
+        raise AssertionError(f"R-Net identity path launches {launched}")
+    if frames.shape != (FRAMES, s, s, 3) or not frames.std(axis=0).max() > 0:
+        raise AssertionError(f"R-Net identity frames {frames.shape}")
+    transform = np.round(ident.transform_params, 3).tolist()
+    log(f"rnet: the photo's identity (colors_bgr {ident.colors_bgr}, ratio "
+        f"{ident.ratio:.4f}, transform {transform}) served: {frames.shape} "
+        f"{frames.dtype}, K1 launches {launched['raster_flat']}")
+
+
+def phase_leftovers(cfg, face_model, trees, synth, identity, panel, pcm,
+                    dev, frame_program_ms, card):
+    """12. bfmnet_dtype, the rgb8 and yuv420 drains at 1 and 2 workers,
+    estimate_chunk_compute, and the corner-cache decode."""
+    import numpy as np
+    import torch
+    from voicepuppet_torch.face3d import morph
+    from voicepuppet_torch.pipeline import synthesize as syn
+    from voicepuppet_torch.pipeline.align import head_sway_angles
+    s = cfg.pixrefer.img_size
+    synth16 = syn.Synthesizer(cfg, face_model, *trees, chunk=CHUNK,
+                              bfmnet_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        c32 = synth.predict_expressions(pcm)
+        c16 = synth16.predict_expressions(pcm)
+        ms32 = cuda_ms(lambda: synth.predict_expressions(pcm), 5)
+        ms16 = cuda_ms(lambda: synth16.predict_expressions(pcm), 5)
+    d = float((c32 - c16).abs().max())
+    scale = float(c32.abs().max())
+    log(f"bfmnet dtype: bfloat16 trunk vs float32, whole clip of {FRAMES} "
+        f"frames: max |diff| {d:.4g} (band 0 < d < 0.05 x {scale:.4g} + "
+        f"1e-3); coefficient program {ms32:.4f} ms float32, {ms16:.4f} ms "
+        f"bfloat16, {card}")
+    if not 0.0 < d < 0.05 * scale + 1e-3:
+        raise AssertionError(f"bf16 coefficients off by {d} at {scale}")
+    del synth16
+
+    drained, rates = {}, {}
+    for fmt in syn.TRANSFER_FORMATS:
+        for workers in (1, 2):
+            with syn.Synthesizer(cfg, face_model, *trees, chunk=CHUNK,
+                                 transfer_format=fmt,
+                                 drain_workers=workers) as sy:
+                drained[fmt] = sy.synthesize(panel, pcm, identity)
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    sy.synthesize(panel, pcm, identity)
+                    times.append(time.perf_counter() - t0)
+                with torch.inference_mode():
+                    out = sy.frame_program(
+                        sy.frame_geometry(identity),
+                        torch.zeros((CHUNK, 257), device=dev),
+                        torch.zeros((CHUNK, 3), device=dev),
+                        torch.zeros((1, s, s, 3), device=dev),
+                        torch.zeros((CHUNK,), dtype=torch.int64,
+                                    device=dev),
+                        torch.zeros((s, s, 3), device=dev),
+                        torch.zeros((s, s, 3), device=dev)).cpu().numpy()
+                host = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    sy.fetch_frames(out, CHUNK)
+                    host.append(time.perf_counter() - t0)
+            fps = sorted(FRAMES / t for t in times)
+            rates[f"{fmt}_w{workers}"] = fps[1]
+            log(f"drain {fmt}, drain_workers {workers}: frames/s "
+                f"{json.dumps([round(f, 2) for f in fps])} (median "
+                f"{fps[1]:.2f}), host fetch_frames {min(host) * 1e3:.2f} ms "
+                f"per chunk of {CHUNK} ({out.nbytes / 1e6:.2f} MB), {card}")
+    luma = lambda f: f.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+    dl = np.abs(luma(drained["rgb8"]) - luma(drained["yuv420"]))
+    dc = np.abs(drained["rgb8"].astype(np.int16)
+                - drained["yuv420"].astype(np.int16))
+    log(f"drain rgb8 vs yuv420 frames: luma mean |diff| {dl.mean():.4f} "
+        f"(band {RGB8_LUMA_MEAN}), max {dl.max():.2f}; RGB mean |diff| "
+        f"{dc.mean():.4f}, max {dc.max()} (chroma subsampling)")
+    if not dl.mean() < RGB8_LUMA_MEAN:
+        raise AssertionError(f"rgb8 luma off yuv420 by {dl.mean()}")
+
+    est = synth.estimate_chunk_compute(identity, k=4, repeats=3)
+    split = device_split(lambda: synth.frame_program(
+        synth.frame_geometry(identity), torch.zeros((CHUNK, 257), device=dev),
+        torch.zeros((CHUNK, 3), device=dev),
+        torch.zeros((1, s, s, 3), device=dev),
+        torch.zeros((CHUNK,), dtype=torch.int64, device=dev),
+        torch.zeros((s, s, 3), device=dev),
+        torch.zeros((s, s, 3), device=dev)), calls=3)
+    prof_ms = (sum(n * us for n, us in split.values()) / 3 / 1e3
+               if split else float("nan"))
+    log(f"estimate_chunk_compute: {est * 1e3:.4f} ms per chunk of {CHUNK} "
+        f"(k = 4, 3 repeats, CUDA events); torch.profiler sum of the frame "
+        f"program's device launches {prof_ms:.4f} ms; CUDA-event frame "
+        f"program {frame_program_ms:.4f} ms; {card}")
+    if not (np.isfinite(est) and est > 0):
+        raise AssertionError(f"estimate_chunk_compute {est}")
+
+    fm_cc = morph.device_bfm(face_model, dev, corner_cache=True)
+    cache_mb = sum(t.numel() * 4 for t in (
+        fm_cc.corner_id_base, fm_cc.corner_ex_base, fm_cc.corner_mean)) / 1e6
+    with torch.inference_mode():
+        coeff = syn.splice_coeff_sequence(identity.bfmcoeff,
+                                          synth.predict_expressions(pcm)
+                                          )[:CHUNK]
+        angles = torch.as_tensor(head_sway_angles(CHUNK), device=dev)
+        got = morph.reconstruct_rotation(coeff, fm_cc, angles)
+        want = morph.reconstruct_rotation(coeff, synth.fm, angles)
+        errs = {}
+        for name in got._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            errs[name] = float((a - b).abs().max()) / max(
+                1.0, float(b.abs().max()))
+        gather_ms = cuda_ms(lambda: morph.reconstruct_rotation(
+            coeff, synth.fm, angles), 20, 3)
+        cache_ms = cuda_ms(lambda: morph.reconstruct_rotation(
+            coeff, fm_cc, angles), 20, 3)
+        ngather = cuda_ms(lambda: morph.compute_norm(morph.shape_formation(
+            coeff[:, :80], coeff[:, 80:144], synth.fm), synth.fm), 20, 3)
+        ncache = cuda_ms(lambda: morph.compute_norm_from_coeff(
+            coeff[:, :80], coeff[:, 80:144], fm_cc), 20, 3)
+    worst = max(errs.values())
+    log(f"corner cache: {cache_mb:.1f} MB on the card; reconstruct_rotation "
+        f"B={CHUNK} cache vs gather max |diff| / max(1, scale) {worst:.3g} "
+        f"(band {CORNER_REL_BAND}): "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+        f"decode {gather_ms:.4f} ms gather, {cache_ms:.4f} ms cache; "
+        f"normals alone {ngather:.4f} / {ncache:.4f} ms; {card}")
+    if not worst <= CORNER_REL_BAND:
+        raise AssertionError(f"corner-cache decode off by {errs}")
+    del fm_cc
+
+
+def phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
+                     card):
+    """13. infer_bfmnet: the 55-frame clip as a 672² mesh video through K1
+    in chunks of 8; K1 against its plain version at 672², B = 8."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voicepuppet_torch import ops as tops
+    from voicepuppet_torch.face3d import morph
+    from voicepuppet_torch.face3d import raster as plain
+    from voicepuppet_torch.ops import raster_selftest
+    from voicepuppet_torch.pipeline import infer_drivers
+    from voicepuppet_torch.pipeline import synthesize as syn
+    n_video = -(-FRAMES // VIDEO_CHUNK)
+    with tempfile.TemporaryDirectory() as td:
+        reset_counts()
+        t0 = time.perf_counter()
+        frames = infer_drivers.infer_bfmnet(cfg, synth, identity, pcm,
+                                            out_dir=td, img_size=VIDEO_SIZE,
+                                            chunk=VIDEO_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        wrote = sorted(os.listdir(td))
+    if (launched["raster_flat"] != n_video
+            or sum(launched.values()) != n_video):
+        raise AssertionError(f"mesh video launches {launched}: K1 once per "
+                             f"chunk of {VIDEO_CHUNK}")
+    if (frames.shape != (FRAMES, VIDEO_SIZE, VIDEO_SIZE, 3)
+            or not frames.std(axis=0).max() > 0):
+        raise AssertionError(f"mesh video frames {frames.shape}")
+    log(f"mesh video: infer_bfmnet -> {frames.shape} {frames.dtype} in "
+        f"{wall:.3f} s, K1 launches {launched['raster_flat']} "
+        f"(ceil({FRAMES}/{VIDEO_CHUNK})), covered "
+        f"{float((frames.sum(-1) > 0).mean()):.3f} of pixels, wrote "
+        f"{wrote[:3]}")
+    with torch.inference_mode():
+        exp = infer_drivers.predict_blink_expressions(cfg, synth, pcm)
+        coeff = syn.splice_coeff_sequence(identity.bfmcoeff,
+                                          exp)[:VIDEO_CHUNK]
+        ang = torch.zeros((VIDEO_CHUNK, 3), device=dev)
+        ang[:, 1] = torch.as_tensor(infer_drivers.sweep_yaw(VIDEO_CHUNK),
+                                    device=dev)
+        rec = morph.reconstruct_rotation(coeff, synth.fm, ang)
+        scale = VIDEO_SIZE / 224.0
+        verts = torch.cat([(112.0 - rec.face_shape[..., :2] * 112.0) * scale,
+                           rec.face_shape[..., 2:3] * scale], -1).contiguous()
+        colors = torch.floor(torch.clamp(rec.face_color, 0.0,
+                                         255.0)).contiguous()
+        tri = synth.fm.tri
+        got = tops.render_colors_auto(verts, colors, tri, h=VIDEO_SIZE,
+                                      w=VIDEO_SIZE)
+        want = plain.render_colors(verts, colors, tri, VIDEO_SIZE,
+                                   VIDEO_SIZE)
+        torch.cuda.synchronize()
+        raster_selftest.expect_equal(got[1], want[1], "672² K1 mask")
+        raster_selftest.expect_equal(got[0], want[0], "672² K1 image")
+        k_ms = cuda_ms(lambda: tops.render_colors_auto(
+            verts, colors, tri, h=VIDEO_SIZE, w=VIDEO_SIZE), 50, 5)
+        p_ms = cuda_ms(lambda: plain.render_colors(
+            verts, colors, tri, VIDEO_SIZE, VIDEO_SIZE), 3, 1)
+        winner, _ = plain.rasterize_winner(verts, tri, VIDEO_SIZE,
+                                           VIDEO_SIZE)
+        bound, bound_by, nbytes, ops, _ = raster_bound_ms(
+            verts, colors, tri, winner, VIDEO_SIZE, VIDEO_SIZE)
+    log(f"raster {VIDEO_SIZE}² B={VIDEO_CHUNK}: K1 bit-exact kernel == "
+        f"plain; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
+        f"{k_ms / bound:.2f}; {n_video} launches per infer_bfmnet call; "
+        f"{card}")
 
 def main():
     import numpy as np
@@ -880,6 +1297,18 @@ def main():
     log(f"reference: small frames {got.shape} card vs CPU mean |diff| "
         f"{mean:.3g}, share > 1 code {over1:.3g}, max {dmax} "
         f"(bands 0.01, 1e-3)")
+
+    # ---- 9-13. the reference's weight files, the R-Net, the leftovers, --
+    # the 672² mesh video ------------------------------------------------
+    phase_tf_oracle(dev)
+    phase_released_weights(cfg, face_model, trees, panel, pcm, identity,
+                           frames, counts, reset_counts, n_chunks, card)
+    phase_rnet(cfg, synth, panel, pcm, dev, counts, reset_counts, n_chunks,
+               card)
+    phase_leftovers(cfg, face_model, trees, synth, identity, panel, pcm, dev,
+                    breakdown["frame_program_total"], card)
+    phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
+                     card)
 
     pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{

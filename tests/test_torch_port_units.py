@@ -64,9 +64,9 @@ def _port_sources():
 
 
 def test_port_imports_no_jax():
-    """Neither the port nor chip_smoke.py imports jax, flax or the JAX
+    """Neither the port nor chip_smoke.py imports jax, flax, orbax or the JAX
     package, at any depth of any function."""
-    banned = ("jax", "jaxlib", "flax", "voicepuppet_tpu")
+    banned = ("jax", "jaxlib", "flax", "orbax", "voicepuppet_tpu")
     sources = list(_port_sources())
     assert len(sources) > 15 and all(os.path.exists(p) for p in sources)
     for path in sources:
@@ -366,3 +366,202 @@ def test_tail_bucket_rule(chunk):
             cc *= 2
         assert tsyn.tail_bucket(n, chunk) == min(cc, chunk)
     assert tsyn.tail_bucket(23, 32) == 32 and tsyn.tail_bucket(5, 16) == 8
+
+
+# ---- the corner cache ---------------------------------------------------------
+
+def _corner_case():
+    model = jbfm.synthetic_bfm(num_theta=14, num_phi=14, seed=3)
+    coeff = jbfm.demo_coeff(model, batch=3, seed=6)
+    coeff[:, 80:144] += np.random.RandomState(8).randn(3, 64).astype(
+        np.float32) * 0.5
+    angles = (np.random.RandomState(9).randn(3, 3) * 0.1).astype(np.float32)
+    return model, coeff, angles
+
+
+def test_corner_cache_layout_matches_jax():
+    model, _, _ = _corner_case()
+    want = jmorph.device_bfm(model, corner_cache=True)
+    got = tmorph.device_bfm(model, "cpu", corner_cache=True)
+    for name in ("corner_id_base", "corner_ex_base", "corner_mean"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert tmorph.device_bfm(model, "cpu").corner_id_base is None
+
+
+def test_compute_norm_from_coeff_matches_jax_and_gather():
+    """The corner-cache normals against the JAX corner-cache normals and
+    against the port's gather path: the same function, float32 round-off
+    apart (unit vectors; measured max |diff| ~1e-7)."""
+    model, coeff, _ = _corner_case()
+    fm = tmorph.device_bfm(model, "cpu", corner_cache=True)
+    jfm = jmorph.device_bfm(model, corner_cache=True)
+    id_c, ex_c = coeff[:, :80], coeff[:, 80:144]
+    got = tmorph.compute_norm_from_coeff(_t(id_c), _t(ex_c), fm).numpy()
+    want = np.asarray(jmorph.compute_norm_from_coeff(
+        jnp.asarray(id_c), jnp.asarray(ex_c), jfm))
+    gather = tmorph.compute_norm(
+        tmorph.shape_formation(_t(id_c), _t(ex_c), fm), fm).numpy()
+    assert np.isfinite(got).all() and np.abs(got).max() > 0.5
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, gather, atol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["reconstruct", "reconstruct_rotation"])
+def test_cached_decode_matches_jax_and_gather(which):
+    """reconstruct / reconstruct_rotation dispatch to the corner cache when
+    the DeviceBFM holds one: every output within 1e-5 of the port's gather
+    path (normals enter only the colours, O(100)) and within the bands of
+    test_reconstruct_rotation_matches_jax of the JAX cached decode."""
+    model, coeff, angles = _corner_case()
+    fm = tmorph.device_bfm(model, "cpu", corner_cache=True)
+    plain_fm = tmorph.device_bfm(model, "cpu")
+    jfm = jmorph.device_bfm(model, corner_cache=True)
+    if which == "reconstruct":
+        got = tmorph.reconstruct(_t(coeff), fm)
+        gather = tmorph.reconstruct(_t(coeff), plain_fm)
+        want = jmorph.reconstruct(jnp.asarray(coeff), jfm)
+    else:
+        got = tmorph.reconstruct_rotation(_t(coeff), fm, _t(angles))
+        gather = tmorph.reconstruct_rotation(_t(coeff), plain_fm,
+                                             _t(angles))
+        want = jmorph.reconstruct_rotation(jnp.asarray(coeff), jfm,
+                                           jnp.asarray(angles))
+    for name, atol in (("face_shape", 1e-5), ("face_projection", 1e-4),
+                       ("z_buffer", 1e-5), ("face_color", 2e-3),
+                       ("landmarks_2d", 1e-4), ("face_texture", 2e-3)):
+        a = getattr(got, name).numpy()
+        np.testing.assert_allclose(a, np.asarray(getattr(want, name)),
+                                   atol=atol, err_msg=name)
+        scale = max(1.0, float(np.abs(a).max()))
+        np.testing.assert_allclose(a, getattr(gather, name).numpy(),
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+# ---- the identity path's host math ------------------------------------------
+
+def _face_image(seed=0, h=300, w=260):
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([(xx * 0.7 + yy * 0.2) % 255, (yy * 0.9) % 255,
+                    (xx * yy * 0.01) % 255], -1) + rng.rand(h, w, 3) * 20
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def test_alignment_math_matches_jax():
+    from voicepuppet_tpu.pipeline import detect as jdetect
+    rng = np.random.RandomState(1)
+    xp, x = rng.randn(2, 5) * 50 + 100, rng.randn(3, 5)
+    (tt, ts), (jt, js) = talign.pos_similarity(xp, x), \
+        jalign.pos_similarity(xp, x)
+    np.testing.assert_array_equal(tt, jt)
+    assert ts == js
+    lmk68 = jdetect.CenteredFaceProvider()(np.zeros((300, 260, 3)))
+    np.testing.assert_array_equal(talign.landmarks68_to_5(lmk68.reshape(-1)),
+                                  jalign.landmarks68_to_5(lmk68.reshape(-1)))
+    lm68_3d = rng.randn(68, 3)
+    np.testing.assert_array_equal(talign.standard_lm3d(lm68_3d),
+                                  jalign.standard_lm3d(lm68_3d))
+    lm3d = jalign.standard_lm3d(lm68_3d * 0.4)
+    lmk5 = jalign.landmarks68_to_5(lmk68.reshape(-1))
+    for img in (_face_image(), _face_image(1).astype(np.float32) / 255.0):
+        got = talign.align_for_identity(img, lmk5, lm3d)
+        want = jalign.align_for_identity(img, lmk5, lm3d)
+        assert got[0].shape == (1, 224, 224, 3) and got[0].dtype == np.float32
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_sat_alignment_and_providers_match_jax(tmp_path):
+    from voicepuppet_tpu.pipeline import detect as jdetect
+    from voicepuppet_torch.pipeline import detect as tdetect
+    img = _face_image(2)
+    np.testing.assert_array_equal(tdetect.CenteredFaceProvider()(img),
+                                  jdetect.CenteredFaceProvider()(img))
+    for provider in ("centered", "shifted"):
+        fn = (tdetect.CenteredFaceProvider() if provider == "centered" else
+              tdetect.CallableLandmarkProvider(
+                  lambda im: jdetect.CenteredFaceProvider()(im) + 31.5))
+        jfn = (jdetect.CenteredFaceProvider() if provider == "centered" else
+               jdetect.CallableLandmarkProvider(
+                   lambda im: jdetect.CenteredFaceProvider()(im) + 31.5))
+        got = tdetect.sat_alignment(img, fn)
+        want = jdetect.sat_alignment(img, jfn)
+        assert len(got) == len(want) == 7
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    rows = np.random.RandomState(3).rand(2, 136).astype(np.float32) * 200
+    np.savetxt(tmp_path / "landmark.txt", rows, delimiter=",", fmt="%.4f")
+    tp = tdetect.FileLandmarkProvider.from_file(str(tmp_path /
+                                                    "landmark.txt"))
+    jp = jdetect.FileLandmarkProvider.from_file(str(tmp_path /
+                                                    "landmark.txt"))
+    for _ in range(2):
+        np.testing.assert_array_equal(tp(img), jp(img))
+    assert tp(img) is None and jp(img) is None
+    assert tdetect.sat_alignment(img, tp) is None
+
+
+@pytest.mark.parametrize("out", ["coords", "heatmaps"])
+def test_torchscript_landmarks_match_jax(out, tmp_path):
+    """A scripted detector (coordinates, or 68 heatmaps at 64² that both
+    sides resize to 128² before the argmax) on the port's device, here the
+    CPU, against the JAX package's provider on the same file."""
+    from voicepuppet_tpu.pipeline import detect as jdetect
+    from voicepuppet_torch.pipeline import detect as tdetect
+
+    class Coords(torch.nn.Module):
+        def forward(self, x):
+            s = x.mean(dim=(1, 2, 3))
+            grid = torch.arange(136, dtype=torch.float32).reshape(1, 68, 2)
+            return grid * 2.0 + s[:, None, None]
+
+    class Heatmaps(torch.nn.Module):
+        def forward(self, x):
+            g = torch.arange(64 * 64, dtype=torch.float32).reshape(1, 1, 64,
+                                                                   64)
+            k = torch.arange(68, dtype=torch.float32).reshape(1, 68, 1, 1)
+            return torch.sin(g * 0.01 * (k + 1)) + x.mean()
+
+    path = str(tmp_path / "m.pt")
+    torch.jit.script(Coords() if out == "coords" else Heatmaps()).save(path)
+    img = _face_image(4, 200, 180)
+    got = tdetect.TorchScriptLandmarkProvider(path, device="cpu")(img)
+    want = jdetect.TorchScriptLandmarkProvider(path)(img)
+    assert got.shape == (68, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_loaders_and_lm3d_match_jax(tmp_path):
+    from scipy.io import savemat
+    from voicepuppet_tpu.data import loaders as jload
+    from voicepuppet_tpu.tools import bfm_tools as jtools
+    from voicepuppet_torch.data import loaders as tload
+    from voicepuppet_torch.tools import bfm_tools as ttools
+    rows = np.random.RandomState(5).rand(3, 136) * 128
+    np.savetxt(tmp_path / "t.txt", rows, delimiter=",", fmt="%.5f")
+    for fn in ("load_text_array", "load_landmarks"):
+        np.testing.assert_array_equal(
+            getattr(tload, fn)(str(tmp_path / "t.txt")),
+            getattr(jload, fn)(str(tmp_path / "t.txt")))
+    np.save(tmp_path / "b.npy", rows)
+    np.testing.assert_array_equal(tload.load_bin_array(str(tmp_path /
+                                                           "b.npy")), rows)
+    with pytest.raises(ValueError):
+        tload.load_bin_array(str(tmp_path / "t.txt"))
+    img = np.random.RandomState(6).rand(10, 12, 3).astype(np.float32)
+    tload.save_image(str(tmp_path / "t.png"), img)
+    jload.save_image(str(tmp_path / "j.png"), img)
+    np.testing.assert_array_equal(tload.load_image(str(tmp_path / "t.png")),
+                                  jload.load_image(str(tmp_path / "j.png")))
+    lm = np.random.RandomState(7).randn(68, 3)
+    savemat(str(tmp_path / "similarity_Lm3D_all.mat"), {"lm": lm})
+    np.testing.assert_array_equal(ttools.resolve_lm3d(str(tmp_path)),
+                                  jtools.resolve_lm3d(str(tmp_path)))
+    np.save(tmp_path / "lm3d.npy", lm[:5])
+    np.testing.assert_array_equal(ttools.resolve_lm3d(str(tmp_path)),
+                                  lm[:5])
+    np.save(tmp_path / "lm3d.npy", lm[:4])
+    with pytest.raises(ValueError):
+        ttools.resolve_lm3d(str(tmp_path))

@@ -14,7 +14,10 @@ Layer map of the serving path (``pipeline.synthesize.Synthesizer``):
   models        BFMNet (audio -> expression coeffs), PixRefer generator
   face3d        BFM asset, 3DMM decode, plain z-buffer raster + its spec
   ops           raster dispatch and the hand-written CUDA raster kernel
-  pipeline      coeff program, chunked frame program, YUV drain, CLI
+  pipeline      coeff program, chunked frame program, YUV/rgb8 drain, CLI,
+                streaming, R-Net identity path, landmarks, mesh video
+  tools         TF checkpoint/GraphDef readers, TF name maps, lm3d
+  utils         video writing
   weights       JAX parameter trees -> this package's state_dicts
 
 Entry points run on ``device="cuda"`` unless the caller passes

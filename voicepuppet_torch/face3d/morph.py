@@ -1,16 +1,21 @@
 """3DMM forward math, batched over frames.
 
-Port of ``voicepuppet_tpu/face3d/morph.py`` (:85-298), the gather path
-that the serving ``Synthesizer`` and the raster probes run (no corner
-cache): ``split_coeff``
--> shape / texture PCA decode -> one-ring vertex normals through
-``point_buf`` -> rotation -> perspective projection -> 9-term SH lighting.
-Matmuls run in full float32 (TF32 off), matching ``Precision.HIGHEST``.
+Port of ``voicepuppet_tpu/face3d/morph.py``: ``split_coeff`` -> shape /
+texture PCA decode -> one-ring vertex normals through ``point_buf`` ->
+rotation -> perspective projection -> 9-term SH lighting.  Matmuls run in
+full float32 (TF32 off), matching ``Precision.HIGHEST``.
+
+The normals take one of two forms of the same function: the gather path
+(:func:`compute_norm`, the triangle corners gathered from the decoded
+shape) or, with ``device_bfm(corner_cache=True)``, the corner cache
+(:func:`compute_norm_from_coeff`, the PCA rows pre-gathered per corner so
+the corners come out of two matmuls).  The cache costs
+``F * 9 * 145 * 4`` bytes (366 MB at BFM scale), so it is opt-in.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,12 +35,17 @@ class DeviceBFM(NamedTuple):
     tri: torch.Tensor         # [F, 3] int32
     point_buf: torch.Tensor   # [N, 8] int64 (sentinel = F)
     keypoints: torch.Tensor   # [68] int64
+    corner_id_base: Optional[torch.Tensor] = None  # [F, 3c, 3xyz, 80]
+    corner_ex_base: Optional[torch.Tensor] = None  # [F, 3c, 3xyz, 64]
+    corner_mean: Optional[torch.Tensor] = None     # [F, 3c, 3xyz] (raw)
 
 
-def device_bfm(model: BFMModel, device="cuda") -> DeviceBFM:
+def device_bfm(model: BFMModel, device="cuda",
+               corner_cache: bool = False) -> DeviceBFM:
     """The model's constants on ``device``.  Raises if a triangle index
     lies outside the model's vertices: the raster kernel trusts the
-    topology made here."""
+    topology made here.  ``corner_cache`` adds the per-corner PCA rows of
+    :func:`compute_norm_from_coeff` (JAX ``morph.py:56-83``)."""
     n = model.num_vertices
     tri = np.asarray(model.tri, np.int64) - 1
     if tri.size and (tri.min() < 0 or tri.max() >= n):
@@ -43,6 +53,13 @@ def device_bfm(model: BFMModel, device="cuda") -> DeviceBFM:
     meanshape = model.meanshape.reshape(n, 3)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                     device=device)
+    corner = {}
+    if corner_cache:
+        idb = np.asarray(model.idBase, np.float32).reshape(n, 3, 80)
+        exb = np.asarray(model.exBase, np.float32).reshape(n, 3, 64)
+        corner = dict(corner_id_base=f32(idb[tri]),
+                      corner_ex_base=f32(exb[tri]),
+                      corner_mean=f32(meanshape.astype(np.float32)[tri]))
     return DeviceBFM(
         meanshape=f32(meanshape),
         recenter=f32(meanshape.mean(axis=0, keepdims=True)),
@@ -55,6 +72,7 @@ def device_bfm(model: BFMModel, device="cuda") -> DeviceBFM:
                                   device=device),
         keypoints=torch.as_tensor(np.asarray(model.keypoints, np.int64),
                                   device=device),
+        **corner,
     )
 
 
@@ -77,19 +95,46 @@ def texture_formation(tex_coeff, fm: DeviceBFM) -> torch.Tensor:
     return flat.reshape(flat.shape[0], -1, 3)
 
 
-def compute_norm(face_shape, fm: DeviceBFM) -> torch.Tensor:
-    """One-ring unit vertex normals [B,N,3] (ref: reconstruct_mesh.py:35-52):
-    face normals summed through ``point_buf``, whose sentinel row indexes a
-    zero normal."""
-    tri = fm.tri.long()
-    v1 = face_shape[:, tri[:, 0]]
-    v2 = face_shape[:, tri[:, 1]]
-    v3 = face_shape[:, tri[:, 2]]
-    face_norm = torch.linalg.cross(v1 - v2, v2 - v3, dim=-1)
+def _one_ring_normals(face_norm, fm: DeviceBFM) -> torch.Tensor:
+    """Face normals [B,F,3] -> unit one-ring vertex normals [B,N,3], summed
+    through ``point_buf``, whose sentinel row indexes a zero normal."""
     face_norm = torch.cat([face_norm, face_norm.new_zeros(
         (face_norm.shape[0], 1, 3))], dim=1)
     v_norm = face_norm[:, fm.point_buf].sum(dim=2)
     return v_norm / torch.linalg.norm(v_norm, dim=2, keepdim=True)
+
+
+def compute_norm(face_shape, fm: DeviceBFM) -> torch.Tensor:
+    """One-ring unit vertex normals [B,N,3] (ref: reconstruct_mesh.py:35-52)
+    from the triangle corners gathered out of the decoded shape."""
+    tri = fm.tri.long()
+    v1 = face_shape[:, tri[:, 0]]
+    v2 = face_shape[:, tri[:, 1]]
+    v3 = face_shape[:, tri[:, 2]]
+    return _one_ring_normals(torch.linalg.cross(v1 - v2, v2 - v3, dim=-1),
+                             fm)
+
+
+def compute_norm_from_coeff(id_coeff, ex_coeff,
+                            fm: DeviceBFM) -> torch.Tensor:
+    """:func:`compute_norm` with no gather: [B,80],[B,64] -> [B,N,3].  The
+    corners come from the corner cache as two matmuls, in the gather
+    path's add order (id + ex + mean, then recenter), so the values agree
+    with it to float32 round-off (JAX ``morph.py:139-160``)."""
+    f = fm.corner_mean.shape[0]
+    v = ((id_coeff @ fm.corner_id_base.reshape(f * 9, 80).T)
+         + (ex_coeff @ fm.corner_ex_base.reshape(f * 9, 64).T)
+         + fm.corner_mean.reshape(1, f * 9)).reshape(-1, f, 3, 3)
+    v = v - fm.recenter[None, None]
+    return _one_ring_normals(torch.linalg.cross(
+        v[:, :, 0] - v[:, :, 1], v[:, :, 1] - v[:, :, 2], dim=-1), fm)
+
+
+def _normals(id_c, ex_c, face_shape, fm: DeviceBFM) -> torch.Tensor:
+    """The corner cache when ``fm`` holds one, else the gather path."""
+    if fm.corner_id_base is not None:
+        return compute_norm_from_coeff(id_c, ex_c, fm)
+    return compute_norm(face_shape, fm)
 
 
 def rotation_matrix(angles) -> torch.Tensor:
@@ -172,7 +217,7 @@ def reconstruct(coeff, fm: DeviceBFM,
     id_c, ex_c, tex_c, angles, gamma, translation = split_coeff(coeff)
     face_shape = shape_formation(id_c, ex_c, fm)
     face_texture = texture_formation(tex_c, fm)
-    face_norm = compute_norm(face_shape, fm)
+    face_norm = _normals(id_c, ex_c, face_shape, fm)
     rotation = rotation_matrix(angles)
     face_norm_r = face_norm @ rotation
     face_projection, z_buffer = projection_layer(face_shape, rotation,
@@ -195,7 +240,7 @@ def reconstruct_rotation(coeff, fm: DeviceBFM, angles,
     id_c, ex_c, tex_c, _, gamma, translation = split_coeff(coeff)
     face_shape = shape_formation(id_c, ex_c, fm)
     face_texture = texture_formation(tex_c, fm)
-    face_norm = compute_norm(face_shape, fm)
+    face_norm = _normals(id_c, ex_c, face_shape, fm)
     rotation = rotation_matrix(angles)
     face_norm_r = face_norm @ rotation
     face_shape = face_shape @ rotation

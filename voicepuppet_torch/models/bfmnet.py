@@ -4,7 +4,10 @@ Port of the inference path of ``voicepuppet_tpu/models/bfmnet.py``
 (:43-166): MfccNet over the mel image + a [5, 3] 'same' max pool to one
 vector per video frame, dense + leaky_relu, a dense into the GRU, the
 masked GRU, and the coefficient head with the ear injection
-``ears * [-2,-2,-2,-4]`` into coefficient dims [16, 20).  Runs in float32.
+``ears * [-2,-2,-2,-4]`` into coefficient dims [16, 20).  ``dtype`` is the
+compute dtype of the conv trunk (JAX ``BFMNet.dtype``): bfloat16 runs the
+MfccNet in bfloat16 from float32 parameters and BN moments, while the
+pooled dense, the GRU and the coefficient head stay float32.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ class MfccEncoder(nn.Module):
     """ref: bfmnet.py:20-41 + the dense at bfmnet.py:198-200."""
 
     def __init__(self, output_channels: int = 256, embedding_size: int = 256,
-                 pooling=(5, 3), width_mult: float = 1.0):
+                 pooling=(5, 3), width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.output_channels = output_channels
         self.pooling = tuple(pooling)
-        self.MfccNet_0 = MfccNet(output_channels, width_mult=width_mult)
+        self.MfccNet_0 = MfccNet(output_channels, width_mult=width_mult,
+                                 dtype=dtype)
         self.Dense_0 = nn.Linear(output_channels, embedding_size)
 
     def forward(self, mfccs, valid_rows: Optional[torch.Tensor] = None):
@@ -59,12 +64,14 @@ class BFMCoeffDecoder(nn.Module):
 class BFMNet(nn.Module):
     """ears [B,T,1], mfccs [B,T*5,80], seq_len [B] -> coeffs [B,T,64]."""
 
-    def __init__(self, cfg: BFMNetConfig):
+    def __init__(self, cfg: BFMNetConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg
         self.mfcc_encoder = MfccEncoder(c.thinresnet_output_channels,
                                         c.encode_embedding_size,
-                                        width_mult=c.backbone_width_mult)
+                                        width_mult=c.backbone_width_mult,
+                                        dtype=dtype)
         self.rnn_in = nn.Linear(c.encode_embedding_size,
                                 c.encode_embedding_size)
         self.rnn_module = MaskedGRU(c.encode_embedding_size,

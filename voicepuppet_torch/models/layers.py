@@ -49,7 +49,12 @@ class SameConv2d(nn.Conv2d):
                          groups=groups, bias=bias)
 
     def forward(self, x):
-        return super().forward(pad_same(x, self.kernel_size, self.stride))
+        # the weight (float32) is cast to the input's dtype: a bfloat16
+        # trunk computes in bfloat16 from float32 parameters
+        return self._conv_forward(pad_same(x, self.kernel_size, self.stride),
+                                  self.weight.to(x.dtype), None
+                                  if self.bias is None
+                                  else self.bias.to(x.dtype))
 
 
 def max_pool_same(x: torch.Tensor, window: Tuple[int, int],
@@ -142,7 +147,9 @@ class MfccNet(nn.Module):
     Input ``[B, 1, T*5, 80]`` (NCHW); frequency is downsampled x64, time is
     kept.  ``valid_rows`` [B] re-zeroes activations past each row's length
     after every stage (and pools see ``-inf`` there), so a time-padded run
-    equals the exact-length run on the valid rows."""
+    equals the exact-length run on the valid rows.  ``dtype`` is the
+    compute dtype of the whole stack (JAX ``MfccNet.dtype``): parameters
+    and BN moments stay float32, the output is float32."""
 
     # (widths index, expansion) of blocks block1_0 .. block7_0, and the
     # blocks a [2,2]/[1,2] max pool follows (layers.py:207-227)
@@ -153,8 +160,10 @@ class MfccNet(nn.Module):
 
     def __init__(self, output_channels: int = 256, width_mult: float = 1.0,
                  widths: Tuple[int, ...] = (32, 64, 64, 128, 192, 256, 256,
-                                            256)):
+                                            256),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         w = lambda f: max(8, int(f * width_mult))
         ch = w(widths[0])
         self.ConvBN_0 = ConvBN(1, ch, (9, 5), (1, 2))
@@ -166,6 +175,7 @@ class MfccNet(nn.Module):
         self.ConvBN_1 = ConvBN(ch, output_channels, (1, 1), (1, 1))
 
     def forward(self, x, valid_rows: Optional[torch.Tensor] = None):
+        x = x.to(self.dtype)
         if valid_rows is None:
             tmask = None
             m0 = lambda v: v
@@ -183,7 +193,7 @@ class MfccNet(nn.Module):
             x = m0(getattr(self, f"InvertedResidual_{i}")(x, tmask))
             if i in self._POOL_AFTER:
                 x = m0(max_pool_same(neg(x), (2, 2), (1, 2)))
-        return m0(self.ConvBN_1(x))
+        return m0(self.ConvBN_1(x)).float()
 
 
 class TFGRUCell(nn.Module):

@@ -1,0 +1,128 @@
+"""The BFMNet mesh-video entry point (port of ``infer_bfmnet`` and its
+helpers in ``voicepuppet_tpu/pipeline/infer_drivers.py``:30-117; ref:
+voicepuppet/bfmnet/infer_bfmnet.py:150-235).
+
+audio -> BFMNet coefficients (a blink pattern in the ear input) -> the
+mesh with a sweeping yaw -> 672² frames through ``render_colors_auto``
+(the flat raster K1) in chunks of 8 -> mp4.  At 672² K1 sees nine times
+the pixels of the serving path's 224².  The other entry points there
+(``infer_pixrefer``, ``infer_pixflow``, ``infer_bfm_pixflow``,
+``infer_atvgnet``) need models and trainers that are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from voicepuppet_torch.config import Config
+
+
+def _blink_ears(t: int) -> np.ndarray:
+    """The ear pattern: 0.2 for the first half, 0.9 after
+    (ref: infer_bfmnet.py:162-165)."""
+    ears = np.full((1, t, 1), 0.9, np.float32)
+    ears[0, : t // 2, 0] = 0.2
+    return ears
+
+
+def sweep_yaw(t: int, shift: float = 0.04, bound: float = 0.8
+              ) -> np.ndarray:
+    """[T] yaw: +``shift`` a frame, turning back past ±``bound``."""
+    yaw = np.zeros((t,), np.float32)
+    a, s = 0.0, shift
+    for i in range(t):
+        a += s
+        if a > bound or a < -bound:
+            s = -s
+        yaw[i] = a
+    return yaw
+
+
+@torch.inference_mode()
+def render_coeff_video_frames(coeff_seq, face_model, img_size: int = 672,
+                              yaw_shift: float = 0.04,
+                              yaw_bound: float = 0.8,
+                              chunk: int = 8, device="cuda") -> np.ndarray:
+    """[T,257] -> [T,img_size,img_size,3] uint8 mesh frames with the
+    sweeping yaw (ref: infer_bfmnet.py:203-235).  ``face_model`` is a
+    ``BFMModel`` (moved to ``device``) or a ``morph.DeviceBFM``, whose
+    device then runs the decode and the raster.
+
+    As in the JAX package, the yaw is applied to the shape itself through
+    ``reconstruct_rotation`` (the reference advances a yaw it never passes
+    on), and the shape's x, y map to ``(112 - xy * 112) * img_size / 224``."""
+    from voicepuppet_torch.face3d import morph
+    from voicepuppet_torch.ops import render_colors_auto
+
+    fm = (face_model if isinstance(face_model, morph.DeviceBFM)
+          else morph.device_bfm(face_model, device))
+    dev = fm.tri.device
+    coeffs = torch.as_tensor(coeff_seq, dtype=torch.float32, device=dev)
+    t = coeffs.shape[0]
+    yaw = torch.as_tensor(sweep_yaw(t, yaw_shift, yaw_bound), device=dev)
+    scale = img_size / 224.0
+    bb = max(6, int(np.ceil(7 * scale)))
+    frames = np.zeros((t, img_size, img_size, 3), np.uint8)
+    for start in range(0, t, chunk):
+        n = min(chunk, t - start)
+        c = torch.zeros((chunk, 257), device=dev)
+        c[:n] = coeffs[start:start + n]
+        ang = torch.zeros((chunk, 3), device=dev)
+        ang[:n, 1] = yaw[start:start + n]
+        rec = morph.reconstruct_rotation(c, fm, ang)
+        shape = rec.face_shape
+        xy = (112.0 - shape[..., :2] * 112.0) * scale
+        z = shape[..., 2:3] * scale
+        verts = torch.cat([xy, z], dim=-1).contiguous()
+        colors = torch.floor(torch.clamp(rec.face_color, 0.0,
+                                         255.0)).contiguous()
+        imgs, _ = render_colors_auto(verts, colors, fm.tri, h=img_size,
+                                     w=img_size, bb=bb)
+        frames[start:start + n] = imgs[:n].cpu().numpy()
+    return frames
+
+
+@torch.inference_mode()
+def predict_blink_expressions(cfg: Config, synthesizer,
+                              pcm: np.ndarray) -> torch.Tensor:
+    """pcm -> [1, T, 64] through the synthesizer's frontend and BFMNet at
+    the clip's own length, with the blink ear pattern."""
+    t = int(1 + pcm.shape[0] / cfg.frame_wav_scale)
+    pcm_len = cfg.pcm_length_for_frames(t)
+    if pcm.shape[0] < pcm_len:
+        pcm = np.pad(pcm, (0, pcm_len - pcm.shape[0]))
+    dev = synthesizer.device
+    mel = synthesizer.frontend(torch.as_tensor(pcm[None, :pcm_len],
+                                               device=dev))
+    return synthesizer.bfmnet(torch.as_tensor(_blink_ears(t), device=dev),
+                              mel, torch.tensor([t], device=dev),
+                              mask_time=True)
+
+
+def infer_bfmnet(cfg: Config, synthesizer, identity, audio_path_or_pcm,
+                 out_dir: str = "output",
+                 audio_path_for_mux: Optional[str] = None,
+                 img_size: int = 672, chunk: int = 8) -> np.ndarray:
+    """audio -> coefficient sequence -> mesh video ``bfmnet.mp4`` in
+    ``out_dir`` (ref: infer_bfmnet.py:125-235); returns the frames."""
+    from voicepuppet_torch.audio.io import load_audio
+    from voicepuppet_torch.pipeline.synthesize import splice_coeff_sequence
+    from voicepuppet_torch.utils.video import save_image_seq_video
+
+    if isinstance(audio_path_or_pcm, str):
+        pcm = load_audio(audio_path_or_pcm, cfg.mel.sample_rate)
+        audio_path_for_mux = audio_path_for_mux or audio_path_or_pcm
+    else:
+        pcm = np.asarray(audio_path_or_pcm, np.float32)
+    exp = predict_blink_expressions(cfg, synthesizer, pcm)
+    coeff_seq = splice_coeff_sequence(identity.bfmcoeff, exp)
+    frames = render_coeff_video_frames(coeff_seq, synthesizer.fm, img_size,
+                                       chunk=chunk)
+    os.makedirs(out_dir, exist_ok=True)
+    save_image_seq_video(frames, os.path.join(out_dir, "bfmnet.mp4"),
+                         cfg.frame_rate, audio_path_for_mux)
+    return frames

@@ -6,30 +6,39 @@ Port of the serving path of ``voicepuppet_tpu/pipeline/synthesize.py``:
     3DMM decode (reconstruct_rotation) -> flat z-buffer raster @224²
     (ops.render_colors_auto: the CUDA kernel) -> resize/paste ->
     PixRefer G @512² (per-chunk batch-stat BN) -> composite ->
-    YUV 4:2:0 pack -> chunked drain + host unpack
+    YUV 4:2:0 pack (or rgb8) -> chunked drain + host unpack
 
 Frames are rendered in chunks of ``chunk``; the last chunk pads to the
 smallest power of two >= its length (floor 8, cap ``chunk``), exactly as
 the reference does, because the padded zero-coefficient frames enter the
 generator's batch-stat BN and so shape the tail frames.  The drain copies
-each packed chunk to pinned host memory on a side stream and unpacks it
-with numpy while the card computes the next chunk.
+each packed chunk to pinned host memory on a side stream; a persistent
+pool of ``drain_workers`` threads waits for each copy and unpacks it with
+numpy while the card computes the next chunks (pipeline depth 4, each task
+writing its own frame slice).
+
+Weights come from fresh random draws (``SynthesisAssets.demo``), from the
+reference's TF checkpoints (``from_tf_checkpoints``) or from TF-named npz
+dumps (``from_npz``), read with no TensorFlow by ``tools/``.
 
 ``raster_group`` > 0 rasterizes with the grouped kernel K4, whose output
 equals the flat kernel's; the streaming driver (``pipeline/streaming.py``)
 reuses :meth:`Synthesizer.frame_program_for` and the fetch helpers.
 
-Not ported yet (ROADMAP.md Queue 1): ``SynthesisAssets.from_npz`` /
-``from_checkpoints`` / ``from_tf_checkpoints``, the R-Net/detector identity
-path, the mp4 mux, multi-device ``mesh`` options.
+Not ported (ROADMAP.md Queue 1): ``SynthesisAssets.from_checkpoints``
+(orbax directories, with the training slice) and the multi-device
+``mesh`` options.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -45,6 +54,11 @@ from voicepuppet_torch.models import pixrefer as px
 from voicepuppet_torch.models.bfmnet import BFMNet, init_bfmnet_
 from voicepuppet_torch.ops import render_colors_auto
 from voicepuppet_torch.pipeline.align import head_sway_angles
+from voicepuppet_torch.tools import tf_checkpoint as tfc
+from voicepuppet_torch.tools.tf_bundle import read_checkpoint
+
+TRANSFER_FORMATS = ("yuv420", "rgb8")
+DRAIN_DEPTH = 4         # chunks in flight between dispatch and drain
 
 
 @dataclasses.dataclass
@@ -183,7 +197,11 @@ class Synthesizer:
     JAX trees; ``SynthesisAssets.init_trees`` makes fresh ones).
     ``gan_dtype``: the generator's conv dtype — bfloat16 serves on the
     card; pass ``torch.float32`` for CPU parity runs.
-    ``transfer_format``: only the reference's default, ``"yuv420"``.
+    ``bfmnet_dtype``: the BFMNet conv trunk's compute dtype (its GRU and
+    head stay float32); bfloat16 moves the coefficients by ~1e-3.
+    ``transfer_format``: ``"yuv420"`` (default, 1.5 B/px) or ``"rgb8"``
+    (3 B/px, no host unpack); the frames come back as RGB uint8 either way.
+    ``drain_workers``: threads that wait for and unpack drained chunks.
     ``raster_group``: > 0 selects the grouped raster kernel K4 (groups of
     that many consecutive triangles), 0 the flat kernel K1; both give the
     same frames."""
@@ -194,22 +212,25 @@ class Synthesizer:
                  chunk: int = 16, raster_size: int = 224,
                  raster_bb: int = 12, mesh=None,
                  gan_dtype: torch.dtype = torch.bfloat16,
+                 bfmnet_dtype: torch.dtype = torch.float32,
                  transfer_format: str = "yuv420",
+                 drain_workers: int = 1,
                  raster_group: int = 0, device="cuda"):
+        self._drain_pool = None
         if mesh is not None:
             raise NotImplementedError("multi-device mesh serving is not "
                                       "ported yet (ROADMAP.md Queue 1)")
-        if transfer_format != "yuv420":
+        if transfer_format not in TRANSFER_FORMATS:
             raise NotImplementedError(
-                f"transfer_format {transfer_format!r}: only yuv420 is ported "
-                "(ROADMAP.md Queue 1)")
+                f"transfer_format {transfer_format!r}: only "
+                f"{' and '.join(TRANSFER_FORMATS)} are ported")
         self.device = torch.device(device)
         full_fp32_matmuls()
         self.cfg = cfg
         self.face_model = face_model
         self.fm = morph.device_bfm(face_model, self.device)
         self.frontend = MelFrontend(cfg.mel, self.device)
-        self.bfmnet = BFMNet(cfg.bfmnet)
+        self.bfmnet = BFMNet(cfg.bfmnet, dtype=bfmnet_dtype)
         self.bfmnet.load_state_dict(bfmnet_state)
         self.bfmnet.to(self.device).eval()
         self.gen = px.PixReferNet(cfg.pixrefer)
@@ -219,6 +240,8 @@ class Synthesizer:
         self.raster_size = raster_size
         self.raster_bb = raster_bb
         self.raster_group = int(raster_group)
+        self.transfer_format = transfer_format
+        self.drain_workers = max(1, int(drain_workers))
         self.img_size = cfg.pixrefer.img_size
         self._side = None         # the d2h copy stream, made at first use
 
@@ -304,7 +327,10 @@ class Synthesizer:
         outputs, _, _ = self.gen(px.preprocess(inputs),
                                  px.preprocess(fg_inputs),
                                  px.preprocess(background))
-        return _pack_yuv420(px.deprocess(outputs))
+        frames = px.deprocess(outputs)
+        if self.transfer_format == "yuv420":
+            return _pack_yuv420(frames)
+        return torch.clamp(frames * 255.0, 0, 255).to(torch.uint8)
 
     @torch.inference_mode()
     def render_frames(self, coeff_seq, identity: Identity,
@@ -347,12 +373,12 @@ class Synthesizer:
 
         frames = np.zeros((t, self.img_size, self.img_size, 3), np.uint8)
         c = self.chunk
-        pending = collections.deque()
 
-        def drain():
-            start, n, fetch = pending.popleft()
+        def drain(start, n, fetch):
             frames[start:start + n] = self.finish_fetch(fetch, n)
 
+        pool = self._drain_executor()
+        futures = []
         for start in range(0, t, c):
             n = min(c, t - start)
             cc = c if n == c else tail_bucket(n, c)
@@ -364,12 +390,40 @@ class Synthesizer:
             idx_c[:n] = bg_idx_all[start:start + n]
             out = self.frame_program(geometry, coeff_c, ang_c, bg_pool,
                                      idx_c, face3d_ref, fg_ref)
-            pending.append((start, n, self.start_fetch(out)))
-            while len(pending) > 2:
-                drain()
-        while pending:
-            drain()
+            fetch = self.start_fetch(out)
+            while len(futures) >= DRAIN_DEPTH:
+                futures.pop(0).result()
+            futures.append(pool.submit(drain, start, n, fetch))
+        for f in futures:
+            f.result()
         return frames
+
+    def _drain_executor(self) -> ThreadPoolExecutor:
+        """The drain pool, made at first use; it persists across calls (a
+        streaming caller renders one block per call)."""
+        if self._drain_pool is None:
+            self._drain_pool = ThreadPoolExecutor(
+                max_workers=self.drain_workers,
+                thread_name_prefix="synth-drain")
+        return self._drain_pool
+
+    def close(self):
+        if self._drain_pool is not None:
+            self._drain_pool.shutdown(wait=False)
+            self._drain_pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def start_fetch(self, out: torch.Tensor):
         """Start the device-to-host copy of a packed chunk; returns the
@@ -397,16 +451,67 @@ class Synthesizer:
         return self.fetch_frames(host.numpy(), n)
 
     def fetch_frames(self, packed: np.ndarray, n: int) -> np.ndarray:
-        """Host chunk of packed YUV 4:2:0 -> [n,S,S,3] uint8 RGB."""
-        return _unpack_yuv420(packed[:n], self.img_size)
+        """A whole host chunk (packed YUV 4:2:0 or rgb8), sliced on the host
+        -> [n,S,S,3] uint8 RGB."""
+        if self.transfer_format == "yuv420":
+            return _unpack_yuv420(packed[:n], self.img_size)
+        return packed[:n]
+
+    @torch.inference_mode()
+    def estimate_chunk_compute(self, identity: Identity, k: int = 8,
+                               repeats: int = 3) -> float:
+        """Seconds of compute per ``chunk``-frame chunk: ``k`` frame
+        programs back to back, each fed a coefficient that depends on the
+        previous packed output, timed against one, ``(t_k - t_1)/(k - 1)``
+        with the minimum of each over ``repeats``.  CUDA events time it on
+        the card (no host round trip inside), ``perf_counter`` on the CPU.
+        NaN where t_k <= t_1: noise swamped the measurement, and no rate is
+        made up."""
+        prog = self.frame_program_for(identity)
+        dev = self.device
+        c, s = self.chunk, self.img_size
+        ang = torch.zeros((c, 3), device=dev)
+        bg_pool = torch.zeros((1, s, s, 3), device=dev)
+        idx = torch.zeros((c,), dtype=torch.int64, device=dev)
+        ref = torch.zeros((s, s, 3), device=dev)
+        cuda = dev.type == "cuda"
+
+        def run(n):
+            coeff = torch.zeros((c, 257), device=dev)
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            else:
+                t0 = time.perf_counter()
+            for _ in range(n):
+                out = prog(coeff, ang, bg_pool, idx, ref, ref)
+                coeff = coeff + 1e-30 * out.reshape(-1)[0].float()
+            if cuda:
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3
+            return time.perf_counter() - t0
+
+        run(1)
+        run(k)
+        t1 = tk = float("inf")
+        for _ in range(repeats):
+            t1 = min(t1, run(1))
+            tk = min(tk, run(k))
+        if tk <= t1:
+            return float("nan")
+        return (tk - t1) / (k - 1)
 
     # ---- the full contract ----
     def synthesize(self, image_path_or_panel, audio_path_or_pcm,
                    identity: Identity,
-                   backgrounds: Optional[Iterator[np.ndarray]] = None
-                   ) -> np.ndarray:
+                   backgrounds: Optional[Iterator[np.ndarray]] = None,
+                   out_dir: Optional[str] = None,
+                   audio_path_for_mux: Optional[str] = None) -> np.ndarray:
         """image (S x 3S panel: img | render | alpha) + audio -> frames
-        [T,S,S,3] uint8."""
+        [T,S,S,3] uint8; with ``out_dir``, also PNGs and, where ffmpeg is on
+        PATH, an ``output.mp4`` muxed with the audio file."""
         s = self.img_size
         if isinstance(image_path_or_panel, str):
             from voicepuppet_torch.data.loaders import load_image
@@ -419,6 +524,7 @@ class Synthesizer:
                                     else np.ones_like(panel[:, :s, :]))
         if isinstance(audio_path_or_pcm, str):
             pcm = load_audio(audio_path_or_pcm, self.cfg.mel.sample_rate)
+            audio_path_for_mux = audio_path_for_mux or audio_path_or_pcm
         else:
             pcm = np.asarray(audio_path_or_pcm, np.float32)
         exp = self.predict_expressions(pcm)
@@ -426,8 +532,12 @@ class Synthesizer:
         if backgrounds is None:
             backgrounds = constant_background(np.zeros((s, s, 3),
                                                         np.float32))
-        return self.render_frames(coeff_seq, identity, face3d_ref, fg_ref,
-                                  backgrounds)
+        frames = self.render_frames(coeff_seq, identity, face3d_ref, fg_ref,
+                                    backgrounds)
+        if out_dir is not None:
+            write_frames_and_mux(frames, out_dir, audio_path_for_mux,
+                                 self.cfg.frame_rate)
+        return frames
 
 
 def constant_background(bg: np.ndarray) -> Iterator[np.ndarray]:
@@ -454,8 +564,16 @@ def cycling_backgrounds(directory: str, img_size: int,
         i += 1
 
 
+def _module_state(make) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``make()`` built on the meta device: its keys and
+    shapes, with no weights allocated."""
+    with torch.device("meta"):
+        return make().state_dict()
+
+
 class SynthesisAssets:
-    """Builds a Synthesizer from fresh random weights (the demo path)."""
+    """Builds a Synthesizer from fresh random weights (the demo path), from
+    the reference's TF checkpoints, or from TF-named npz dumps."""
 
     @staticmethod
     def init_trees(cfg: Config, seed: int = 0
@@ -466,6 +584,68 @@ class SynthesisAssets:
         bfm = init_bfmnet_(BFMNet(cfg.bfmnet), g)
         gen = px.init_pixrefer_(px.PixReferNet(cfg.pixrefer), g)
         return bfm.state_dict(), gen.state_dict()
+
+    @staticmethod
+    def states_from_arrays(cfg: Config, bfmnet_arrays, pixrefer_arrays,
+                           bfmnet_what: str, pixrefer_what: str
+                           ) -> Tuple[Dict[str, torch.Tensor],
+                                      Dict[str, torch.Tensor]]:
+        """TF-named arrays -> complete (bfmnet_state, g_state), or a
+        ``ValueError`` naming the first three missing, unexpected or
+        mis-shaped variables of either."""
+        bfm_own = _module_state(lambda: BFMNet(cfg.bfmnet))
+        g_own = _module_state(lambda: px.PixReferNet(cfg.pixrefer))
+        return (tfc.strict_state(bfmnet_arrays, bfm_own,
+                                 tfc.bfmnet_rows(bfm_own), bfmnet_what),
+                tfc.strict_state(pixrefer_arrays, g_own,
+                                 tfc.pixrefer_generator_name_map(),
+                                 pixrefer_what))
+
+    @staticmethod
+    def load_npz_weights(cfg: Config, bfmnet_npz: str, pixrefer_g_npz: str
+                         ) -> Tuple[Dict[str, torch.Tensor],
+                                    Dict[str, torch.Tensor]]:
+        """TF-named npz dumps (``bfmnet.npz`` / ``pixrefer_g.npz``) ->
+        (bfmnet_state, g_state)."""
+        return SynthesisAssets.states_from_arrays(
+            cfg, tfc.read_npz(bfmnet_npz), tfc.read_npz(pixrefer_g_npz),
+            f"bfmnet npz {bfmnet_npz}", f"pixrefer npz {pixrefer_g_npz}")
+
+    @staticmethod
+    def load_tf_weights(cfg: Config, bfmnet_prefix: str,
+                        pixrefer_prefix: str
+                        ) -> Tuple[Dict[str, torch.Tensor],
+                                   Dict[str, torch.Tensor]]:
+        """The reference's TF checkpoints (``ckpt_bfmnet/bfmnet-65000``,
+        ``ckpt_pixrefer/pixrefernet-20000``: V2 bundles or V1 files) ->
+        (bfmnet_state, g_state), read with no TensorFlow.  Variables no
+        row names (the discriminator, optimizer slots) are ignored."""
+        return SynthesisAssets.states_from_arrays(
+            cfg, read_checkpoint(bfmnet_prefix),
+            read_checkpoint(pixrefer_prefix),
+            f"bfmnet ckpt {bfmnet_prefix}",
+            f"pixrefer ckpt {pixrefer_prefix}")
+
+    @staticmethod
+    def from_npz(cfg: Config, bfmnet_npz: str, pixrefer_g_npz: str,
+                 face_model=None, mesh=None, **synth_kwargs) -> Synthesizer:
+        face_model = face_model or bfm_mod.synthetic_bfm(num_theta=48,
+                                                         num_phi=48)
+        return Synthesizer(cfg, face_model,
+                           *SynthesisAssets.load_npz_weights(
+                               cfg, bfmnet_npz, pixrefer_g_npz),
+                           mesh=mesh, **synth_kwargs)
+
+    @staticmethod
+    def from_tf_checkpoints(cfg: Config, bfmnet_prefix: str,
+                            pixrefer_prefix: str, face_model=None,
+                            mesh=None, **synth_kwargs) -> Synthesizer:
+        face_model = face_model or bfm_mod.synthetic_bfm(num_theta=48,
+                                                         num_phi=48)
+        return Synthesizer(cfg, face_model,
+                           *SynthesisAssets.load_tf_weights(
+                               cfg, bfmnet_prefix, pixrefer_prefix),
+                           mesh=mesh, **synth_kwargs)
 
     @staticmethod
     def demo(cfg: Config, seed: int = 0, face_model=None,
@@ -479,18 +659,78 @@ class SynthesisAssets:
                                          cfg.pixrefer.img_size)
 
 
-def write_frames(frames: np.ndarray, out_dir: str):
-    """PNG sequence ``0.png ..`` (the mp4 mux is not ported yet)."""
+def write_frames_and_mux(frames: np.ndarray, out_dir: str,
+                         audio_path: Optional[str], frame_rate: int):
+    """PNG sequence ``0.png ..`` and, when an audio path is given and ffmpeg
+    is on PATH, ``output.mp4`` (H.264 yuv420p + AAC; ref:
+    infer_bfmvid.py:243-246)."""
     from PIL import Image
     os.makedirs(out_dir, exist_ok=True)
     for i in range(frames.shape[0]):
         Image.fromarray(frames[i]).save(os.path.join(out_dir, f"{i}.png"))
+    ffmpeg = shutil.which("ffmpeg")
+    if audio_path is not None and ffmpeg is not None:
+        subprocess.run([ffmpeg, "-v", "error", "-framerate", str(frame_rate),
+                        "-i", os.path.join(out_dir, "%d.png"), "-i",
+                        audio_path, "-c:v", "libx264", "-pix_fmt", "yuv420p",
+                        "-c:a", "aac", "-shortest", "-y",
+                        os.path.join(out_dir, "output.mp4")], check=False)
+
+
+def _resolve_face_model(cfg: Config):
+    """The BFM of ``cfg.model_dir`` when it holds ``BFM_model_front.mat``,
+    else the synthetic stand-in."""
+    if os.path.exists(os.path.join(cfg.model_dir, "BFM_model_front.mat")):
+        return bfm_mod.load_bfm(cfg.model_dir)
+    return bfm_mod.synthetic_bfm(num_theta=48, num_phi=48)
+
+
+def load_identity_npz(path: str) -> Identity:
+    """An identity npz (bfmcoeff, transform_params, center_x, center_y,
+    ratio and optionally colors_bgr, default True: R-Net coefficients)."""
+    blob = np.load(path)
+    return Identity(bfmcoeff=blob["bfmcoeff"],
+                    transform_params=blob["transform_params"],
+                    center_x=int(blob["center_x"]),
+                    center_y=int(blob["center_y"]),
+                    ratio=float(blob["ratio"]),
+                    colors_bgr=bool(blob.get("colors_bgr", True)))
+
+
+def photo_identity(cfg: Config, image_path: str, landmark_model: str,
+                   rnet_npz: Optional[str] = None,
+                   rnet_pb: Optional[str] = None,
+                   device="cuda") -> Identity:
+    """The reference's novel-face path (infer_bfmvid.py:170-173): 68
+    landmarks from a TorchScript detector -> SAT crop geometry -> R-Net
+    identity coefficients, all on ``device``."""
+    from voicepuppet_torch.data.loaders import load_image
+    from voicepuppet_torch.pipeline.detect import (
+        TorchScriptLandmarkProvider, sat_alignment)
+    from voicepuppet_torch.pipeline.rnet import RNetIdentityProvider
+    from voicepuppet_torch.tools.bfm_tools import resolve_lm3d
+
+    src = load_image(image_path)[:, :cfg.pixrefer.img_size, :]
+    out = sat_alignment(src, TorchScriptLandmarkProvider(landmark_model,
+                                                         device=device))
+    if out is None:
+        raise SystemExit("no face detected by --landmark_model")
+    _, _, img_cropped, lmk_c, cx, cy, ratio = out
+    lm3d = resolve_lm3d(cfg.model_dir)
+    provider = (RNetIdentityProvider.from_pb(rnet_pb, lm3d, device=device)
+                if rnet_pb else
+                RNetIdentityProvider.from_npz(rnet_npz, lm3d, device=device))
+    return provider(img_cropped, lmk_c, cx, cy, ratio)
 
 
 def main(argv=None):
-    """Demo-path CLI: ``python -m voicepuppet_torch.pipeline.synthesize
+    """CLI of the reference script (``infer_bfmvid.py --config_path cfg.yml
+    image audio``): ``python -m voicepuppet_torch.pipeline.synthesize
     [--config_path cfg.yml] [--out_dir output] [--background_dir dir]
-    [--device cuda] image audio`` — random weights, synthetic BFM."""
+    [--bfmnet_tf_ckpt P --pixrefer_tf_ckpt P | --bfmnet_npz F
+    --pixrefer_npz F] [--identity_npz F | --landmark_model F --rnet_npz F
+    | --rnet_pb F] [--device cuda] image audio``.  With no weight flags it
+    serves random weights; with no identity flags, the synthetic one."""
     import argparse
     from voicepuppet_torch.config import load_config
 
@@ -499,15 +739,68 @@ def main(argv=None):
     p.add_argument("--out_dir", default="output")
     p.add_argument("--background_dir", default="background")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--bfmnet_tf_ckpt", default=None,
+                   help="reference TF checkpoint prefix (e.g. "
+                        "ckpt_bfmnet/bfmnet-65000), read with no TF")
+    p.add_argument("--pixrefer_tf_ckpt", default=None,
+                   help="reference TF checkpoint prefix (e.g. "
+                        "ckpt_pixrefer/pixrefernet-20000), read with no TF")
+    p.add_argument("--bfmnet_npz", default=None,
+                   help="TF-named bfmnet.npz")
+    p.add_argument("--pixrefer_npz", default=None,
+                   help="TF-named pixrefer_g.npz")
+    p.add_argument("--identity_npz", default=None,
+                   help="npz with bfmcoeff/transform_params/center_x/"
+                        "center_y/ratio (replaces the detector and R-Net)")
+    p.add_argument("--landmark_model", default=None,
+                   help="TorchScript 68-landmark detector; with --rnet_npz "
+                        "or --rnet_pb the face photo's identity path")
+    p.add_argument("--rnet_npz", default=None,
+                   help="slim-named npz of the Deep3DFace R-Net")
+    p.add_argument("--rnet_pb", default=None,
+                   help="the reference's FaceReconModel.pb, read with no TF")
     p.add_argument("image")
     p.add_argument("audio")
     args = p.parse_args(argv)
+
     cfg = load_config(args.config_path)
-    synth, identity = SynthesisAssets.demo(cfg, device=args.device)
+    if (args.bfmnet_tf_ckpt is None) != (args.pixrefer_tf_ckpt is None):
+        p.error("--bfmnet_tf_ckpt and --pixrefer_tf_ckpt must be given "
+                "together")
+    if (args.bfmnet_npz is None) != (args.pixrefer_npz is None):
+        p.error("--bfmnet_npz and --pixrefer_npz must be given together")
+    if args.bfmnet_tf_ckpt is not None and args.bfmnet_npz is not None:
+        p.error("--bfmnet_tf_ckpt and --bfmnet_npz: give TF checkpoints or "
+                "npz weights, not both")
+    if args.rnet_npz is not None and args.rnet_pb is not None:
+        p.error("--rnet_npz and --rnet_pb: give one R-Net, not both")
+    rnet = args.rnet_npz or args.rnet_pb
+    if (args.landmark_model is None) != (rnet is None):
+        p.error("--landmark_model and --rnet_npz/--rnet_pb must be given "
+                "together (the face photo's identity path needs both)")
+    if args.bfmnet_tf_ckpt is not None or args.bfmnet_npz is not None:
+        face_model = _resolve_face_model(cfg)
+        if args.bfmnet_tf_ckpt is not None:
+            synth = SynthesisAssets.from_tf_checkpoints(
+                cfg, args.bfmnet_tf_ckpt, args.pixrefer_tf_ckpt,
+                face_model=face_model, device=args.device)
+        else:
+            synth = SynthesisAssets.from_npz(
+                cfg, args.bfmnet_npz, args.pixrefer_npz,
+                face_model=face_model, device=args.device)
+        identity = synthetic_identity(face_model,
+                                      img_size=cfg.pixrefer.img_size)
+    else:
+        synth, identity = SynthesisAssets.demo(cfg, device=args.device)
+    if args.identity_npz:
+        identity = load_identity_npz(args.identity_npz)
+    elif args.landmark_model:
+        identity = photo_identity(cfg, args.image, args.landmark_model,
+                                  args.rnet_npz, args.rnet_pb, args.device)
     bgs = cycling_backgrounds(args.background_dir, cfg.pixrefer.img_size)
-    frames = synth.synthesize(args.image, args.audio, identity,
-                              backgrounds=bgs)
-    write_frames(frames, args.out_dir)
+    with synth:
+        frames = synth.synthesize(args.image, args.audio, identity,
+                                  backgrounds=bgs, out_dir=args.out_dir)
     print(f"wrote {frames.shape[0]} frames to {args.out_dir}")
 
 

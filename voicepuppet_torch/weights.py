@@ -19,7 +19,11 @@ state_dict key one to one, with these layout changes:
     into ``TFBatchNorm``)
   * ``StatelessBatchNorm`` ``scale`` -> ``weight``
 
-Leaves may be numpy arrays or anything ``np.asarray`` takes.
+Leaves may be numpy arrays or anything ``np.asarray`` takes.  The same
+rule serves the TF-named loaders (``tools/tf_checkpoint.py``): a TF
+variable is first put into its JAX layout and path, then through
+:func:`state_key_for` and :func:`convert_leaf`; :func:`flax_leaf` is the
+inverse used by the exports.
 """
 
 from __future__ import annotations
@@ -58,6 +62,31 @@ def convert_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
                      f"{'/'.join(path)}")
 
 
+def flax_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`convert_leaf`: a torch-layout parameter -> the
+    JAX leaf at ``path``."""
+    if path[-1] != "kernel":
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4 and len(path) > 1 and path[-2].startswith(
+            "ConvTranspose"):
+        return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]
+    if value.ndim == 4:
+        return np.transpose(value, (2, 3, 1, 0))
+    raise ValueError(f"unexpected kernel rank {value.ndim} at "
+                     f"{'/'.join(path)}")
+
+
+def state_key_for(path: Tuple[str, ...]) -> str:
+    """The state_dict key of the JAX leaf at ``path`` (a tuple of scope
+    names ending in the leaf name, without the collection)."""
+    if path[-1] not in _LEAF_NAMES:
+        raise KeyError(f"unmapped leaf {'/'.join(path)}")
+    mods = [p for p in path[:-1] if p != "BatchNorm_0"]
+    return ".".join(mods + [_LEAF_NAMES[path[-1]]])
+
+
 def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax variables (``{"params": ..., "batch_stats": ...}``) or a bare
     params tree -> a state_dict keyed like the port's modules."""
@@ -67,13 +96,25 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for root in roots:
         for path, value in _leaves(root):
-            if path[-1] not in _LEAF_NAMES:
-                raise KeyError(f"unmapped leaf {'/'.join(path)}")
-            mods = [p for p in path[:-1] if p != "BatchNorm_0"]
-            key = ".".join(mods + [_LEAF_NAMES[path[-1]]])
-            out[key] = torch.from_numpy(np.ascontiguousarray(
+            out[state_key_for(path)] = torch.from_numpy(np.ascontiguousarray(
                 convert_leaf(path, value), dtype=np.float32))
     return out
+
+
+def check_state_dict(own: Mapping[str, torch.Tensor],
+                     state: Mapping[str, torch.Tensor], what: str):
+    """Raise a ``ValueError`` naming the first three missing, unexpected
+    and mis-shaped entries of ``state`` against a module's own state_dict
+    ``own``; a partial state_dict is never loaded."""
+    missing = [k for k in own if k not in state]
+    unexpected = [k for k in state if k not in own]
+    shaped = [f"{k} {tuple(state[k].shape)} vs {tuple(own[k].shape)}"
+              for k in state if k in own and own[k].shape != state[k].shape]
+    problems = [f"{len(v)} {label}, e.g. {v[:3]}" for label, v in (
+        ("missing", missing), ("unexpected", unexpected),
+        ("mis-shaped", shaped)) if v]
+    if problems:
+        raise ValueError(f"{what}: " + "; ".join(problems))
 
 
 def load_flax_(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
