@@ -93,6 +93,33 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         K1 once per chunk of 8; K1 at 672², B = 8, bit for
                         bit against its plain version, its time, bound and
                         ratio.
+ 14. train bfmnet      BFMNetTrainer at Config() (width 1.0, 256-wide, batch 8,
+                        T = 24, dropout 0.25, the loss through the 189²
+                        synthetic BFM) on an on-disk dataset of 4 clips of
+                        240 frames: fit 30 steps with eval and checkpoints
+                        every 10, K1 twice per eval (the eval grid), the
+                        last grid equal to the plain raster's bit for bit,
+                        the checkpoint restored equal; ms per step (CUDA
+                        events), fit steps/s, steps_per_call 4 against 1,
+                        the device's idle share (torch.profiler).
+ 15. train pixrefer    PixReferTrainer at Config() (512², ngf 64, ndf 64,
+                        batch 2, the full VGG-16 trunk from seed 17) on
+                        512x1536 3-panel JPEG clips, float32,
+                        perceptual_dtype bfloat16 and dtype bfloat16: the
+                        image summary and a checkpoint from fit, then 10
+                        timed steps each with their G forward + D / G split,
+                        peak memory and the losses.
+ 16. train card vs cpu one BFMNet and one PixRefer step at the CPU tests'
+                        widths on the card and on the CPU from the same
+                        weights and batch: losses and gradients within the
+                        CPU tests' bands, PixRefer's updates within 3e-3 of
+                        a leaf's max, beside two readings that place that
+                        band: the CPU against itself on the batch's rows
+                        swapped, which must fall inside it, and the card
+                        with TF32 on, which must fall outside it.
+ 17. from_checkpoints   the clip served from the checkpoint directories of
+                        14 and 15, byte-identical to the same state_dicts
+                        served directly, K1 once per chunk.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that did not launch fails the script.
@@ -134,6 +161,8 @@ RNET_REL_BAND = 1e-4
 RGB8_LUMA_MEAN = 1.5        # mean |luma(rgb8) - luma(yuv420)| in codes
 CORNER_REL_BAND = 1e-5      # tests/test_torch_port_units.py
 VIDEO_SIZE, VIDEO_CHUNK = 672, 8
+TRAIN_STEPS, TRAIN_EVAL_EVERY = 30, 10   # BFMNet fit: 3 evals, 3 saves
+PX_STEPS = 10                # timed PixRefer steps per dtype mode
 
 
 def log(msg):
@@ -691,6 +720,567 @@ def phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
         f"{bound:.4f} ms ({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
         f"{k_ms / bound:.2f}; {n_video} launches per infer_bfmnet call; "
         f"{card}")
+
+
+# ---- 14-17. training ---------------------------------------------------------
+
+def mark():
+    """A CUDA event recorded on the current stream."""
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def elapsed_ms(a, b):
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def step_ms(fn, warm, n):
+    """Median ms per call of ``fn`` over ``n`` calls after ``warm``: a mark
+    before each call and one after the last, read after the last call, so
+    the host may run ahead of the card."""
+    for _ in range(warm):
+        fn()
+    marks = [mark()]
+    for _ in range(n):
+        fn()
+        marks.append(mark())
+    return median([elapsed_ms(a, b) for a, b in zip(marks, marks[1:])])
+
+
+def device_busy_share(fn):
+    """The share of a window's wall time in which the card ran a kernel,
+    a copy or a memset: the union of their spans in a torch.profiler trace
+    of ``fn``.  A trace with no device span, or a union longer than the
+    window, is a fault of the measurement and raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("device_busy_share: the trace holds no device "
+                             "span")
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if busy > wall_us:
+        raise AssertionError(f"device_busy_share: {busy:.1f} us of device "
+                             f"spans in a {wall_us:.1f} us window")
+    return busy / wall_us
+
+
+class _FetchAll:
+    """A logger that keeps nothing: ``fit`` still fetches every step's
+    metrics from the card to hand them to it, as with a real logger."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+
+def write_bfm_dataset(root, rng, clips, frames):
+    """BFMNet clips as tests/test_trainer_clis.py writes them (coefficient
+    and landmark text files, a 16 kHz wav), with 0.1 s of leading
+    silence; returns the "folder|frame_count" list file."""
+    import numpy as np
+    from scipy.io import wavfile
+    lines = []
+    for k in range(clips):
+        d = os.path.join(root, f"clip{k}")
+        os.makedirs(d)
+        np.savetxt(os.path.join(d, "bfmcoeff.txt"),
+                   rng.randn(frames, 257) * 0.1, fmt="%.5f", delimiter=",")
+        np.savetxt(os.path.join(d, "landmark.txt"),
+                   rng.rand(frames, 136) * 140 + 40, fmt="%.3f",
+                   delimiter=",")
+        n = frames * 640
+        t = np.arange(n) / 16000.0
+        pcm = (0.3 * np.sin(2 * np.pi * (150 + 40 * k) * t)
+               * np.sin(2 * np.pi * 3 * t) + 0.05 * rng.randn(n))
+        pcm[:1600] = 0.0
+        wavfile.write(os.path.join(d, "audio.wav"), 16000,
+                      (np.clip(pcm, -1, 1) * 32767).astype(np.int16))
+        lines.append(f"{d}|{frames}")
+    path = os.path.join(root, "bfm_list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_panel_dataset(root, rng, clips, frames, s):
+    """PixRefer clips of [s, 3s] target|render|alpha JPEG panels."""
+    import numpy as np
+    from PIL import Image
+    lines = []
+    for k in range(clips):
+        d = os.path.join(root, f"panels{k}")
+        os.makedirs(d)
+        for i in range(frames):
+            alpha = np.zeros((s, s, 3), np.uint8)
+            alpha[s // 8:-s // 8, s // 4:-s // 4] = 255
+            img = np.concatenate([(rng.rand(s, s, 3) * 255).astype(np.uint8),
+                                  (rng.rand(s, s, 3) * 255).astype(np.uint8),
+                                  alpha], axis=1)
+            Image.fromarray(img).save(os.path.join(d, f"{i}.jpg"))
+        lines.append(f"{d}|{frames}")
+    path = os.path.join(root, "panel_list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+class plain_raster:
+    """Within the block, ``ops.render_colors_auto`` is the plain PyTorch
+    raster (face3d/raster.py) on the same tensors."""
+
+    def __enter__(self):
+        from voicepuppet_torch import ops
+        from voicepuppet_torch.face3d import raster as plain
+        self._saved = ops.render_colors_auto
+        ops.render_colors_auto = (lambda v, c, t, h=224, w=224, **_:
+                                  plain.render_colors(v, c, t, h, w))
+
+    def __exit__(self, *exc):
+        from voicepuppet_torch import ops
+        ops.render_colors_auto = self._saved
+
+
+def same_state(a, b, what):
+    """Two state_dicts (tensors, or optimizer states) equal to the bit."""
+    import torch
+
+    def walk(x, y, path):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.shape == y.shape
+                    and torch.equal(x.cpu(), y.cpu())):
+                raise AssertionError(f"{what}: {path} differs")
+        elif isinstance(x, dict):
+            if set(x) != set(y):
+                raise AssertionError(f"{what}: keys differ at {path}")
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}/{i}")
+        elif x != y:
+            raise AssertionError(f"{what}: {path} {x} != {y}")
+    walk(a, b, "")
+
+
+def phase_train_bfmnet(dev, counts, reset_counts, card, work):
+    """14. BFMNet training at full width (Config(): width 1.0, 256-wide,
+    batch 8, T = 24, dropout 0.25; the loss through the 189² synthetic
+    BFM) on an on-disk dataset: fit with eval and checkpoints inside the
+    run, the eval grid through K1 against the plain raster bit for bit,
+    the checkpoint restored equal, ms per step, steps/s and the device's
+    idle share."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.data.generators import (BFMNetBatcher, FileSource,
+                                                   prefetch_to_device)
+    from voicepuppet_torch.face3d import bfm, morph
+    from voicepuppet_torch.train.bfmnet_trainer import (BFMNetTrainer,
+                                                        batch_to_device)
+    from voicepuppet_torch.train.checkpoint import CheckpointManager
+    from voicepuppet_torch.train.metrics import MetricsLogger
+    from voicepuppet_torch.utils.viz import coeff_grid, plot_bfm_coeff_seq
+    steps, every, timed = TRAIN_STEPS, TRAIN_EVAL_EVERY, 20
+    os.makedirs(work, exist_ok=True)
+    lst = write_bfm_dataset(work, np.random.RandomState(SEED), 4, 240)
+    cfg = tcfg.Config()
+    b = cfg.bfmnet
+    cfg = dataclasses.replace(
+        cfg, dataset=dataclasses.replace(cfg.dataset, train_dataset_path=lst,
+                                         eval_dataset_path=lst),
+        bfmnet=dataclasses.replace(b, training=dataclasses.replace(
+            b.training, eval_interval=every, save_interval=every,
+            max_to_keep=2)))
+    face_model = bfm.synthetic_bfm(num_theta=189, num_phi=189)
+    trainer = BFMNetTrainer(cfg, face_model, device=dev)
+    state = trainer.init_state(seed=SEED)
+    fm = morph.device_bfm(face_model, dev)
+    ckpt_dir = os.path.join(work, "ckpt_bfmnet")
+    ckpt = CheckpointManager(ckpt_dir, 2, every)
+    log_dir = os.path.join(work, "log_bfmnet")
+    logger = MetricsLogger(log_dir, "bfmnet", print_every=0)
+    evals = []
+
+    def eval_hook(step, _state, batch, out):
+        evals.append((np.asarray(batch[0][0]), out[0].cpu().numpy()))
+        plot_bfm_coeff_seq(os.path.join(log_dir, "eval"), step,
+                           *evals[-1], fm)
+
+    batches = prefetch_to_device(iter(BFMNetBatcher(
+        cfg, FileSource(lst, cfg), device=dev)), dev)
+    eval_batches = iter(BFMNetBatcher(cfg, FileSource(lst, cfg),
+                                      shuffle=False, device=dev))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, batches, steps, eval_batches, logger, ckpt,
+                        eval_hook=eval_hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    logger.close()
+    n_grid = 2 * (steps // every)
+    if launched["raster_flat"] != n_grid or sum(launched.values()) != n_grid:
+        raise AssertionError(f"bfmnet fit launches {launched}: K1 twice per "
+                             f"eval, {steps // every} evals")
+    with open(logger.path) as f:
+        rows = [json.loads(x) for x in f]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"bfmnet losses {losses}")
+    real, pred = evals[-1]
+    grid = coeff_grid(real, pred, fm)
+    with plain_raster():
+        want = coeff_grid(real, pred, fm)
+    if not (np.array_equal(grid, want) and grid.max() > 0):
+        raise AssertionError("eval grid: K1 differs from the plain raster")
+    if ckpt.steps() != [steps - every, steps]:
+        raise AssertionError(f"bfmnet checkpoints {ckpt.steps()}")
+    restored = ckpt.restore(trainer.init_state(seed=SEED + 1))
+    same_state(restored.state_dict(), state.state_dict(), "bfmnet restore")
+    log(f"train bfmnet: Config() width {b.backbone_width_mult}, "
+        f"{b.thinresnet_output_channels}/{b.encode_embedding_size}/"
+        f"{b.rnn_hidden_size}, batch {b.batch_size}, T "
+        f"{cfg.dataset.fixed_sequence_len}, dropout {b.training.drop_rate}, "
+        f"loss basis {face_model.num_vertices} vertices; fit {steps} steps "
+        f"(eval and save every {every}) in {wall:.2f} s = "
+        f"{steps / wall:.2f} steps/s with the data pipeline; loss "
+        f"{losses[0]:.4g} -> {losses[-1]:.4g} (finite); eval grid "
+        f"{grid.shape} K1 == plain bit for bit, K1 launches "
+        f"{launched['raster_flat']} ({n_grid // (steps // every)} per eval "
+        f"at B = {real.shape[0]}, 224²); checkpoint {ckpt.steps()[-1]} "
+        f"restored equal; {card}")
+
+    batch = batch_to_device(next(batches), dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ms = step_ms(lambda: trainer.train_step(state, batch, gen), 5, timed)
+
+    def repeat():
+        while True:
+            yield batch
+
+    per_call = {}
+    for k in (1, 4, 1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(state, repeat(), 12, logger=_FetchAll(),
+                    steps_per_call=k)
+        torch.cuda.synchronize()
+        per_call.setdefault(k, []).append(
+            (time.perf_counter() - t0) / 12 * 1e3)
+    busy = device_busy_share(lambda: trainer.fit(state, batches, 5))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train bfmnet: {ms:.3f} ms/step median over {timed} steps after 5 "
+        f"warm (CUDA events, one device batch); fit ms/step at "
+        f"steps_per_call 1 {min(per_call[1]):.3f}, 4 {min(per_call[4]):.3f} "
+        f"(12 steps, metrics fetched per call, best of 2); device idle "
+        f"share over 5 fit steps with the data pipeline {1 - busy:.3f}; peak "
+        f"memory of the timed steps {peak:.2f} GiB; {card}")
+    return dict(ckpt_dir=ckpt_dir, grid_launches=launched["raster_flat"])
+
+
+PX_MODES = (("float32", "float32", None), ("perceptual_bf16", "float32",
+                                           "bfloat16"),
+            ("bf16", "bfloat16", None))
+
+
+def phase_train_pixrefer(dev, card, work):
+    """15. PixRefer training at full width (512², ngf 64, ndf 64, batch 2,
+    the full VGG-16 trunk drawn from seed 17) on 3-panel JPEG clips, in
+    float32, --perceptual_dtype bfloat16 and --dtype bfloat16: the image
+    summary and a checkpoint from fit, then ms per step with its D / G
+    split, peak memory and the losses."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.data.generators import (BackgroundBatches,
+                                                   FileSource,
+                                                   PixReferBatcher,
+                                                   prefetch_to_device)
+    from voicepuppet_torch.train.checkpoint import CheckpointManager
+    from voicepuppet_torch.train.metrics import MetricsLogger
+    from voicepuppet_torch.train.pixrefer_trainer import (DTYPES,
+                                                          PixReferTrainer)
+    steps, warm = PX_STEPS, 3
+    os.makedirs(work, exist_ok=True)
+    cfg = tcfg.Config()
+    s = cfg.pixrefer.img_size
+    lst = write_panel_dataset(work, np.random.RandomState(SEED + 1), 2, 6, s)
+    p = cfg.pixrefer
+    fit_steps = 5                      # global step 10: summary + save
+    cfg = dataclasses.replace(
+        cfg, dataset=dataclasses.replace(cfg.dataset,
+                                         train_dataset_path=lst),
+        pixrefer=dataclasses.replace(p, training=dataclasses.replace(
+            p.training, summary_interval=2 * fit_steps,
+            save_interval=2 * fit_steps)))
+    src = FileSource(lst, cfg, load_images=True)
+    ckpt_dir = os.path.join(work, "ckpt_pixrefer")
+    for mode, dtype, pdtype in PX_MODES:
+        trainer = PixReferTrainer(cfg, train_dtype=DTYPES[dtype],
+                                  perceptual_dtype=DTYPES.get(pdtype),
+                                  device=dev)
+        state = trainer.init_state(seed=SEED)
+        bg = BackgroundBatches(lambda i: iter(PixReferBatcher(
+            cfg, src, seed=i)), num_workers=4)
+        batches = prefetch_to_device(bg, dev)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            if mode == "float32":
+                log_dir = os.path.join(work, "log_pixrefer")
+                logger = MetricsLogger(log_dir, "pixrefer", print_every=0)
+                ckpt = CheckpointManager(ckpt_dir, 2,
+                                         cfg.pixrefer.training.save_interval)
+                state = trainer.fit(state, batches, fit_steps, logger, ckpt)
+                logger.close()
+                image = os.path.join(log_dir, "images",
+                                     f"pixrefer_{2 * fit_steps}.jpg")
+                if not os.path.exists(image) or ckpt.steps() != [
+                        2 * fit_steps]:
+                    raise AssertionError(f"pixrefer fit wrote {image} "
+                                         f"{os.path.exists(image)}, "
+                                         f"checkpoints {ckpt.steps()}")
+            timed = [next(batches) for _ in range(warm + steps)]
+        finally:
+            bg.close()
+        # timed with the decode threads stopped: their GIL time would slow
+        # the host's launches inside the marks
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for i, batch in enumerate(timed):
+            marks = []
+            state, m = trainer.train_step(state, batch, marks=marks)
+            if i >= warm:
+                rows.append((marks, m))
+        torch.cuda.synchronize()
+        split = [[elapsed_ms(mk[0], mk[1]), elapsed_ms(mk[1], mk[2])]
+                 for mk, _ in rows]
+        losses = [{k: float(v) for k, v in m.items()} for _, m in rows]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(np.isfinite(list(r.values())).all() for r in losses):
+            raise AssertionError(f"pixrefer {mode} losses {losses}")
+        total = [d + g for d, g in split]
+        k = total.index(median(total))
+        log(f"train pixrefer {mode}: {s}² ngf {p.ngf} ndf {p.ndf} batch "
+            f"{p.batch_size}, {median(total):.2f} ms/step median over {steps} "
+            f"steps after {warm} warm on batches from the pipeline, its "
+            f"threads stopped (G forward + D step {split[k][0]:.2f}, G step "
+            f"{split[k][1]:.2f}; CUDA events); peak memory {peak:.2f} GiB; "
+            f"last losses {json.dumps({n: round(v, 5) for n, v in losses[-1].items()})}"
+            f"{'; wrote ' + image if mode == 'float32' else ''}; {card}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    return dict(ckpt_dir=ckpt_dir)
+
+
+# card vs CPU: the bands of tests/test_torch_train_bfmnet.py and
+# tests/test_torch_train_pixrefer.py (the port against JAX on the CPU),
+# but for PixRefer's updates, 3e-3 of a leaf's max: float32 sum order
+# alone moves G's by about 1.3e-3 (the CPU against itself with the batch's
+# two rows swapped, read in phase 16 and required inside the band), and
+# TF32 convs and matmuls on the card, which the band exists to catch, are
+# required outside it
+LOSS_REL = 1e-5
+BFM_LEAF, BFM_TRUNK, BFM_TRUNK_L2, BFM_NULL = 1e-4, 0.15, 2e-2, 1e-4
+GAN_UPDATE, GAN_NULL, GAN_LR = 3e-3, 1e-5, 0.1
+
+
+def phase_train_card_vs_cpu(dev, card):
+    """16. One BFMNet step and one PixRefer step at the tests' widths
+    (tests/_torch_port_cases.py: width-mult 0.25, 64-wide BFMNet; PixRefer
+    256², ngf and ndf 8, batch 2, the full VGG trunk) on the card and on
+    the CPU from the same weights and batch: the losses and BFMNet's
+    gradients against the bands the CPU tests hold the port to JAX with;
+    PixRefer's SGD updates (D's, and G's through the updated D) against
+    3e-3 of a leaf's max, with the CPU's reading on the batch's rows
+    swapped required inside that band and the card's with TF32 on
+    required outside it."""
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.audio.frontend import full_fp32_matmuls
+    from voicepuppet_torch.face3d import bfm
+    from voicepuppet_torch.train.bfmnet_trainer import BFMNetTrainer
+    from voicepuppet_torch.train.pixrefer_trainer import PixReferTrainer
+    cfg = tcfg.Config(
+        bfmnet=tcfg.BFMNetConfig(
+            backbone_width_mult=0.25, thinresnet_output_channels=64,
+            encode_embedding_size=64, rnn_hidden_size=64,
+            training=tcfg.TrainingConfig(drop_rate=0.0)),
+        pixrefer=tcfg.PixReferConfig(ngf=8, ndf=8, img_size=256))
+    fm = bfm.synthetic_bfm(num_theta=10, num_phi=10, seed=0)
+    rng = np.random.RandomState(5)
+    batch = (rng.randn(4, 8, 257).astype(np.float32) * 0.1,
+             rng.rand(4, 8, 1).astype(np.float32) * 0.1,
+             rng.randn(4, 40, 80).astype(np.float32),
+             np.array([8, 6, 8, 5], np.int32))
+    sgd = lambda params: torch.optim.SGD(params, lr=GAN_LR)
+    got = {}
+    for d in (dev, "cpu"):
+        tr = BFMNetTrainer(cfg, fm, device=d, tx=sgd)
+        st = tr.init_state(seed=SEED)
+        loss = tr.loss(st, batch)
+        loss.backward()
+        got[d] = (float(loss.detach()), {n: p.grad.cpu().numpy()
+                                for n, p in st.model.named_parameters()})
+    (lc, gc), (lh, gh) = got[dev], got["cpu"]
+    loss_rel = abs(lc / lh - 1)
+    worst = {"head": 0.0, "trunk": 0.0, "null": 0.0}
+    dt, wt = [], []
+    for n, w in gh.items():
+        trunk = n.startswith("mfcc_encoder.MfccNet_0.")
+        scale = np.abs(w).max()
+        if trunk and scale < BFM_NULL:
+            worst["null"] = max(worst["null"], float(np.abs(gc[n]).max()))
+            continue
+        r = float(np.abs(gc[n] - w).max() / scale)
+        worst["trunk" if trunk else "head"] = max(
+            worst["trunk" if trunk else "head"], r)
+        if trunk:
+            dt.append((gc[n] - w).ravel())
+            wt.append(w.ravel())
+    l2 = float(np.linalg.norm(np.concatenate(dt))
+               / np.linalg.norm(np.concatenate(wt)))
+    log(f"train card vs cpu: BFMNet step (width 0.25, B 4, T 8, train-mode "
+        f"BN) loss rel {loss_rel:.3g} (band {LOSS_REL}); grads / leaf max: "
+        f"head {worst['head']:.3g} (band {BFM_LEAF}), conv trunk "
+        f"{worst['trunk']:.3g} (band {BFM_TRUNK}), trunk rel L2 {l2:.3g} "
+        f"(band {BFM_TRUNK_L2}), zero-gradient BN biases |g| "
+        f"{worst['null']:.3g} (band {BFM_NULL}); {card}")
+    if not (loss_rel < LOSS_REL and worst["head"] < BFM_LEAF
+            and worst["trunk"] < BFM_TRUNK and l2 < BFM_TRUNK_L2
+            and worst["null"] < BFM_NULL):
+        raise AssertionError("BFMNet card vs CPU outside its bands")
+
+    prng = np.random.RandomState(6)
+    pbatch = tuple(prng.rand(2, 256, 256, c).astype(np.float32)
+                   for c in (6, 6, 3, 3))
+    swapped = tuple(np.ascontiguousarray(a[::-1]) for a in pbatch)
+
+    def gan_step(d, batch, tf32=False):
+        """Losses and SGD updates of one D+G step on ``d`` from the seeded
+        weights; ``tf32`` turns TF32 on for cuBLAS and cuDNN for it."""
+        tr = PixReferTrainer(cfg, device=d, g_tx=sgd, d_tx=sgd)
+        st = tr.init_state(seed=SEED)
+        before = {k: {n: v.cpu().clone() for n, v in m.state_dict().items()}
+                  for k, m in (("gen", st.gen), ("disc", st.disc))}
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            st, m = tr.train_step(st, batch)
+        finally:
+            full_fp32_matmuls()
+        return ({k: float(v) for k, v in m.items()},
+                {k: {n: (v.cpu() - before[k][n]).numpy()
+                     for n, v in mod.state_dict().items()}
+                 for k, mod in (("gen", st.gen), ("disc", st.disc))})
+
+    def off(run, ref):
+        """Losses' largest relative difference, and the updates' largest
+        |difference| over each leaf's max update (D, G) or, for a leaf
+        whose update is float noise, its largest |gradient|."""
+        (mc, uc), (mh, uh) = run, ref
+        worst = {"loss": max(abs(mc[k] / mh[k] - 1) for k in mh),
+                 "disc": 0.0, "gen": 0.0, "null": 0.0}
+        for part in ("disc", "gen"):
+            for n, w in uh[part].items():
+                scale = np.abs(w).max()
+                if scale / GAN_LR < GAN_NULL:
+                    worst["null"] = max(
+                        worst["null"],
+                        float(np.abs(uc[part][n]).max()) / GAN_LR)
+                else:
+                    worst[part] = max(worst[part], float(
+                        np.abs(uc[part][n] - w).max() / scale))
+        return worst
+
+    cpu = gan_step("cpu", pbatch)
+    card_run = off(gan_step(dev, pbatch), cpu)
+    rows = off(gan_step("cpu", swapped), cpu)
+    tf32 = off(gan_step(dev, pbatch, tf32=True), cpu)
+    log(f"train card vs cpu: PixRefer SGD step (256², ngf 8, ndf 8, batch "
+        f"2, full VGG) losses rel {card_run['loss']:.3g} (band {LOSS_REL}); "
+        f"updates / leaf max: D {card_run['disc']:.3g}, G through the "
+        f"updated D {card_run['gen']:.3g} (band {GAN_UPDATE}), "
+        f"zero-gradient conv biases |g| {card_run['null']:.3g} (band "
+        f"{GAN_NULL}); the CPU against itself on the batch's rows swapped: "
+        f"D {rows['disc']:.3g}, G {rows['gen']:.3g} (inside the band); the "
+        f"card with TF32 on: losses rel {tf32['loss']:.3g}, D "
+        f"{tf32['disc']:.3g}, G {tf32['gen']:.3g} (outside it); {card}")
+    if not (card_run["loss"] < LOSS_REL and card_run["disc"] < GAN_UPDATE
+            and card_run["gen"] < GAN_UPDATE
+            and card_run["null"] < GAN_NULL):
+        raise AssertionError("PixRefer card vs CPU outside its bands")
+    if not (rows["disc"] < GAN_UPDATE and rows["gen"] < GAN_UPDATE):
+        raise AssertionError("PixRefer update band: the CPU's own sum-order "
+                             "noise falls outside it")
+    if not max(tf32["disc"], tf32["gen"]) >= GAN_UPDATE:
+        raise AssertionError("PixRefer update band: TF32 on the card falls "
+                             "inside it")
+
+
+def phase_from_checkpoints(cfg, face_model, bfm_dir, px_dir, panel, pcm,
+                           identity, counts, reset_counts, n_chunks, card,
+                           dev="cuda", chunk=CHUNK):
+    """17. The clip served from the checkpoint directories the training
+    phases wrote: frames byte-identical to the same state_dicts served
+    through Synthesizer directly, K1 once per chunk."""
+    import numpy as np
+    from voicepuppet_torch.pipeline import synthesize as syn
+    from voicepuppet_torch.train.checkpoint import CheckpointManager
+    reset_counts()
+    t0 = time.perf_counter()
+    with syn.SynthesisAssets.from_checkpoints(
+            cfg, bfm_dir, px_dir, face_model=face_model, chunk=chunk,
+            device=dev) as synth:
+        frames = synth.synthesize(panel, pcm, identity)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    if (launched["raster_flat"] != n_chunks
+            or sum(launched.values()) != n_chunks):
+        raise AssertionError(f"from_checkpoints launches {launched}")
+    with syn.Synthesizer(cfg, face_model,
+                         CheckpointManager(bfm_dir).load()["model"],
+                         CheckpointManager(px_dir).load()["gen"],
+                         chunk=chunk, device=dev) as direct:
+        want = direct.synthesize(panel, pcm, identity)
+    if not (np.array_equal(frames, want) and frames.std(axis=0).max() > 0):
+        raise AssertionError("from_checkpoints frames differ from the same "
+                             "state_dicts served directly")
+    log(f"from_checkpoints: {frames.shape} {frames.dtype} from "
+        f"{os.path.basename(bfm_dir)} (step "
+        f"{CheckpointManager(bfm_dir).latest_step()}) and "
+        f"{os.path.basename(px_dir)} (step "
+        f"{CheckpointManager(px_dir).latest_step()}) byte-identical to "
+        f"Synthesizer on the same state_dicts, K1 launches "
+        f"{launched['raster_flat']} for {n_chunks} chunks, {wall:.2f} s "
+        f"with the load; {card}")
+
+
 
 def main():
     import numpy as np
@@ -1310,6 +1900,17 @@ def main():
     phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
                      card)
 
+    # ---- 14-17. training, and serving what it wrote ----------------------
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        bfm_run = phase_train_bfmnet(dev, counts, reset_counts, card,
+                                     os.path.join(work, "bfmnet"))
+        px_run = phase_train_pixrefer(dev, card, os.path.join(work, "px"))
+        phase_train_card_vs_cpu(dev, card)
+        phase_from_checkpoints(cfg, face_model, bfm_run["ckpt_dir"],
+                               px_run["ckpt_dir"], panel, pcm, identity,
+                               counts, reset_counts, n_chunks, card)
+
     pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{
         "name": name,
@@ -1324,7 +1925,8 @@ def main():
         "bound_by": bby,
         "library_ms": None,
     } for name, replaces, n, err, ms, pms, bms, bby in (
-        ("raster_flat", f"{pallas}:126", launches, max_abs_err, k_ms, p_ms,
+        ("raster_flat", f"{pallas}:126",
+         launches + bfm_run["grid_launches"], max_abs_err, k_ms, p_ms,
          bound, bound_by),
         ("raster_grouped", f"{pallas}:337", k4_launches, k4_err, k4_ms,
          p4g_ms, bound, bound_by),

@@ -23,22 +23,27 @@ def jax_cfg():
 
 
 def port_cfg(jcfg=None):
-    """The same configuration as the port's own dataclasses."""
+    """The same configuration as the port's own dataclasses: every field
+    the port's config keeps, training knobs included."""
     from voicepuppet_torch import config as tc
     jcfg = jcfg or jax_cfg()
-    b = jcfg.bfmnet
+
+    def own(cls, obj):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = getattr(obj, f.name)
+            if dataclasses.is_dataclass(v):
+                v = tc.TrainingConfig(**dataclasses.asdict(v))
+            kw[f.name] = v
+        return cls(**kw)
+
     return tc.Config(
         model_dir=jcfg.model_dir, frame_rate=jcfg.frame_rate,
         mel=tc.MelConfig(**dataclasses.asdict(jcfg.mel)),
-        bfmnet=tc.BFMNetConfig(
-            thinresnet_scale=b.thinresnet_scale,
-            thinresnet_output_channels=b.thinresnet_output_channels,
-            encode_embedding_size=b.encode_embedding_size,
-            rnn_hidden_size=b.rnn_hidden_size, rnn_layers=b.rnn_layers,
-            bfm_coeff_size=b.bfm_coeff_size,
-            backbone_width_mult=b.backbone_width_mult),
-        pixrefer=tc.PixReferConfig(ngf=jcfg.pixrefer.ngf,
-                                   img_size=jcfg.pixrefer.img_size))
+        training=tc.TrainingConfig(**dataclasses.asdict(jcfg.training)),
+        dataset=tc.DatasetConfig(**dataclasses.asdict(jcfg.dataset)),
+        bfmnet=own(tc.BFMNetConfig, jcfg.bfmnet),
+        pixrefer=own(tc.PixReferConfig, jcfg.pixrefer))
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,3 +73,31 @@ def jax_trees():
     g = px.PixReferNet(cfg.pixrefer).init(jax.random.PRNGKey(1), x, x,
                                           x[..., :3])["params"]
     return bfm, jax.tree_util.tree_map(np.asarray, g)
+
+
+def numpy_tree(module, *args, seed=0, **kwargs):
+    """The variables of ``module.init(key, *args, **kwargs)`` drawn with
+    seeded numpy on the shapes of ``jax.eval_shape`` (no XLA compile):
+    kernels N(0, 1/fan_in), biases and BN offsets N(0, 0.05), BN scales
+    1 + N(0, 0.05), running means U(0, 0.2) and variances 1 + U(0, 0.2)."""
+    import jax
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                *args, **kwargs))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = leaf.shape
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.05 * rng.randn(*shape)).astype(np.float32)
+        if name == "mean":
+            return rng.uniform(0.0, 0.2, shape).astype(np.float32)
+        if name == "var":
+            return (1.0 + rng.uniform(0.0, 0.2, shape)).astype(np.float32)
+        return (0.05 * rng.randn(*shape)).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    return jax.tree_util.tree_map(np.asarray, tree)

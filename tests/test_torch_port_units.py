@@ -64,9 +64,9 @@ def _port_sources():
 
 
 def test_port_imports_no_jax():
-    """Neither the port nor chip_smoke.py imports jax, flax, orbax or the JAX
-    package, at any depth of any function."""
-    banned = ("jax", "jaxlib", "flax", "orbax", "voicepuppet_tpu")
+    """Neither the port nor chip_smoke.py imports jax, flax, optax, orbax
+    or the JAX package, at any depth of any function."""
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "voicepuppet_tpu")
     sources = list(_port_sources())
     assert len(sources) > 15 and all(os.path.exists(p) for p in sources)
     for path in sources:
@@ -93,10 +93,15 @@ def test_config_copy_matches_reference():
     from voicepuppet_tpu.config import Config as JConfig
     j, t = JConfig(), tconfig.Config()
     assert dataclasses.asdict(j.mel) == dataclasses.asdict(t.mel)
-    for f in dataclasses.fields(t.bfmnet):
-        assert getattr(j.bfmnet, f.name) == getattr(t.bfmnet, f.name)
-    assert (j.pixrefer.ngf, j.pixrefer.img_size) == (t.pixrefer.ngf,
-                                                     t.pixrefer.img_size)
+    assert dataclasses.asdict(j.bfmnet) == dataclasses.asdict(t.bfmnet)
+    for f in dataclasses.fields(t.pixrefer):
+        want = getattr(j.pixrefer, f.name)
+        got = getattr(t.pixrefer, f.name)
+        if dataclasses.is_dataclass(want):
+            want, got = dataclasses.asdict(want), dataclasses.asdict(got)
+        assert got == want, f.name
+    assert dataclasses.asdict(j.dataset) == dataclasses.asdict(t.dataset)
+    assert dataclasses.asdict(j.training) == dataclasses.asdict(t.training)
     for n in (1, 16, 55):
         assert j.pcm_length_for_frames(n) == t.pcm_length_for_frames(n)
     assert (j.frame_wav_scale, j.frame_mfcc_scale) == (t.frame_wav_scale,

@@ -419,7 +419,10 @@ def test_cli_serves_each_weight_source_on_cpu(cli_dir, flags, capsys):
     ["--bfmnet_tf_ckpt", "a", "--pixrefer_tf_ckpt", "b", "--bfmnet_npz",
      "c", "--pixrefer_npz", "d"],
     ["--landmark_model", "a"], ["--rnet_npz", "a"], ["--rnet_pb", "a"],
-    ["--landmark_model", "a", "--rnet_npz", "b", "--rnet_pb", "c"]])
+    ["--landmark_model", "a", "--rnet_npz", "b", "--rnet_pb", "c"],
+    ["--bfmnet_ckpt", "a"], ["--pixrefer_ckpt", "a"],
+    ["--bfmnet_ckpt", "a", "--pixrefer_ckpt", "b", "--bfmnet_npz", "c",
+     "--pixrefer_npz", "d"]])
 def test_cli_pairing_errors(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         tsyn.main(flags + ["--device", "cpu", "image.png", "audio.wav"])

@@ -1,10 +1,12 @@
-"""Configuration for the serving path.
+"""Configuration for serving and training.
 
-Own copy of the serving subset of ``voicepuppet_tpu/config.py``: the mel
-frontend, BFMNet and PixRefer hyper-parameters and the top-level fields
-the synthesis pipeline reads.  The YAML loader accepts the reference
-``config/params.yml`` schema and the nested native schema; keys this
-subset does not know are ignored, as the reference loader ignores extras.
+Own copy of the serving and training subset of
+``voicepuppet_tpu/config.py``: the mel frontend, the dataset lists, the
+BFMNet and PixRefer hyper-parameters with their training knobs, and the
+top-level fields the pipelines read.  The YAML loader accepts the
+reference ``config/params.yml`` schema and the nested native schema; keys
+this subset does not know are ignored, as the reference loader ignores
+extras.
 """
 
 from __future__ import annotations
@@ -30,8 +32,25 @@ class MelConfig:
 
 
 @dataclass(frozen=True)
+class TrainingConfig:
+    """Per-trainer optimization knobs (ref: config/params.yml:25-31)."""
+
+    epochs: int = 100000
+    drop_rate: float = 0.25
+    learning_rate: float = 1e-3
+    max_grad_norm: float = 50.0
+    decay_steps: int = 1000
+    decay_rate: float = 0.95
+    beta1: float = 0.9
+    save_interval: int = 5000    # ref: train_bfmnet.py:78
+    eval_interval: int = 1000    # ref: train_bfmnet.py:80
+    summary_interval: int = 100  # ref: train_pixrefer.py:144
+    max_to_keep: int = 10        # ref: train_bfmnet.py:74
+
+
+@dataclass(frozen=True)
 class BFMNetConfig:
-    """BFMNet inference hyper-parameters (ref: bfmnet.py:143-157)."""
+    """BFMNet hyper-parameters (ref: bfmnet.py:143-157)."""
 
     thinresnet_scale: Tuple[int, int] = (1, 32)
     thinresnet_output_channels: int = 256
@@ -39,15 +58,44 @@ class BFMNetConfig:
     rnn_hidden_size: int = 256
     rnn_layers: int = 1
     bfm_coeff_size: int = 64
+    batch_size: int = 8          # ref: generator/generator.py:395
+    mouth_weight: float = 10.0   # ref: bfmnet.py:137
     backbone_width_mult: float = 1.0
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        learning_rate=1e-4, decay_steps=10000, decay_rate=1.0))
 
 
 @dataclass(frozen=True)
 class PixReferConfig:
-    """PixRefer generator hyper-parameters (ref: pixrefer.py:24-37)."""
+    """PixRefer GAN hyper-parameters (ref: pixrefer.py:24-37)."""
 
     ngf: int = 64
+    ndf: int = 64
+    l1_weight: float = 500.0
+    gan_weight: float = 1.0
     img_size: int = 512
+    batch_size: int = 2          # ref: generator/generator.py:938
+    crop_ratio: float = 0.9      # ref: generator/generator.py:940
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        learning_rate=3e-4, beta1=0.5, decay_rate=0.999, max_to_keep=2))
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """Dataset list / sample-file naming (ref: config/params.yml:1-14)."""
+
+    train_dataset_path: str = "config/train.txt"
+    eval_dataset_path: str = "config/eval.txt"
+    root_path: str = ""
+    train_by_eval: int = 9
+    landmark_name: str = "landmark.txt"
+    wav_name: str = "audio.wav"
+    bfmcoeff_name: str = "bfmcoeff.txt"
+    max_sequence_len: int = 30   # ref: generator/generator.py:392
+    min_sequence_len: int = 20
+    fixed_sequence_len: int = 24  # ref: generator/generator.py:460
+    shuffle_bufsize: int = 1000
+    silence_top_db: float = 20.0  # ref: generator/generator.py:461
 
 
 @dataclass(frozen=True)
@@ -55,6 +103,8 @@ class Config:
     model_dir: str = "./allmodels"
     frame_rate: int = 25
     mel: MelConfig = field(default_factory=MelConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
     bfmnet: BFMNetConfig = field(default_factory=BFMNetConfig)
     pixrefer: PixReferConfig = field(default_factory=PixReferConfig)
 
@@ -104,6 +154,49 @@ def _update_dataclass(obj, overrides: Dict[str, Any]):
     return dataclasses.replace(obj, **kwargs)
 
 
+_MODEL_KEYS = ("bfmnet", "pixrefer")
+
+
+def _distribute_training(out: Dict[str, Any], training: Dict[str, Any]):
+    """Propagate the reference YAML's shared ``training:`` block into each
+    model's training config.  A key reaches a model only if that model's
+    default training config does not pin the field (pinned = differs from
+    the base ``TrainingConfig`` default): the reference hard-codes those
+    after its YAML load (bfmnet.py:153-157), so the YAML value is dead
+    there too.  A per-model ``<model>: training:`` block always wins."""
+    base = TrainingConfig()
+    defaults = Config()
+    for model_key in _MODEL_KEYS:
+        model_default = getattr(defaults, model_key).training
+        pinned = {f.name for f in dataclasses.fields(TrainingConfig)
+                  if getattr(model_default, f.name) != getattr(base, f.name)}
+        merged = {k: v for k, v in training.items()
+                  if k not in pinned and not isinstance(v, dict)}
+        merged.update(out.get(model_key, {}).get("training", {}))
+        if merged:
+            out.setdefault(model_key, {})["training"] = merged
+
+
+def _flatten_reference_yaml(raw: Dict[str, Any]) -> Dict[str, Any]:
+    """Map the reference params.yml schema onto the Config tree."""
+    out: Dict[str, Any] = {k: raw[k] for k in ("model_dir", "frame_rate",
+                                               "mel", "training")
+                           if k in raw}
+    dataset: Dict[str, Any] = {k: raw[k] for k in (
+        "train_dataset_path", "eval_dataset_path", "root_path",
+        "train_by_eval") if k in raw}
+    if "sample_file" in raw:
+        dataset.update(raw["sample_file"])
+    if dataset:
+        out["dataset"] = dataset
+    for key in ("dataset",) + _MODEL_KEYS:
+        if key in raw:
+            out.setdefault(key, {}).update(raw[key])
+    if isinstance(raw.get("training"), dict):
+        _distribute_training(out, raw["training"])
+    return out
+
+
 def load_config(config_path: Optional[str] = None,
                 profile: str = "default") -> Config:
     """Load a YAML profile on top of the defaults;
@@ -117,6 +210,4 @@ def load_config(config_path: Optional[str] = None,
     with open(config_path) as f:
         docs = yaml.safe_load(f)
     raw = docs.get(profile, docs) if isinstance(docs, dict) else {}
-    flat = {k: raw[k] for k in ("model_dir", "frame_rate", "mel",
-                                "bfmnet", "pixrefer") if k in raw}
-    return _update_dataclass(cfg, flat)
+    return _update_dataclass(cfg, _flatten_reference_yaml(raw))

@@ -1,6 +1,6 @@
-"""Inference building blocks with TF1-reference semantics.
+"""Building blocks with TF1-reference semantics, for inference and training.
 
-Port of the inference subset of ``voicepuppet_tpu/models/layers.py``.
+Port of ``voicepuppet_tpu/models/layers.py``.
 Submodules keep the flax scope names (``Conv_0``, ``TFBatchNorm_1``,
 ``InvertedResidual_3`` ...) so a state_dict key reads like the JAX
 parameter path (``weights.py`` maps one onto the other).
@@ -10,6 +10,11 @@ Tensors are NCHW inside; TF ``'SAME'`` padding is applied explicitly with
 is odd — e.g. the stride-2 stem over 80 mel bins pads (1, 2) — and torch's
 symmetric ``padding=`` cannot express that.  Max pools pad with ``-inf``,
 as ``lax.reduce_window`` does.
+
+Training mode is an explicit ``train`` argument, as in the JAX modules:
+``TFBatchNorm`` then normalizes with the batch moments and updates its
+running moments, and :func:`dropout` draws its mask from the caller's
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -69,23 +74,65 @@ def leaky_relu(x):
     return F.leaky_relu(x, negative_slope=0.2)
 
 
-class TFBatchNorm(nn.Module):
-    """tf.contrib.layers.batch_norm at inference: running moments,
-    eps 1e-3, offset only (no scale).  Normalizes in float32 over the
-    channel axis 1."""
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.  The mask
+    is drawn from ``generator`` (on ``x``'s device)."""
+    if rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
-    def __init__(self, ch: int, epsilon: float = 1e-3):
+
+def batch_moments(xf: torch.Tensor):
+    """Per-channel (axis 1) mean and biased variance of a float32 tensor:
+    flax's ``mean(x²) - mean²`` to rounding, taken by ``torch.var_mean``
+    in one pass.  Its backward, ``2(x - mean)/N``, is well conditioned;
+    the float32 backward of ``mean(x²) - mean²`` cancels two large terms,
+    which left BFMNet's head gradients 7.8e-4 of a leaf's max |g| off
+    JAX's, against 7.7e-6 this way (tests/test_torch_train_bfmnet.py)."""
+    red = (0,) + tuple(range(2, xf.dim()))
+    var, mean = torch.var_mean(xf, dim=red, correction=0)
+    return mean, var
+
+
+class TFBatchNorm(nn.Module):
+    """tf.contrib.layers.batch_norm: eps 1e-3, offset only (no scale),
+    normalizing in float32 over the channel axis 1.
+
+    At inference it uses the running moments.  With ``train`` it uses the
+    batch moments of :func:`batch_moments` and moves the running moments
+    by ``ra <- 0.999 ra + 0.001 batch`` (flax's momentum; ``F.batch_norm``
+    would store the unbiased variance, with one minus this momentum)."""
+
+    def __init__(self, ch: int, epsilon: float = 1e-3,
+                 momentum: float = 0.999):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
-        y = ((xf - self.running_mean.view(shape))
-             * torch.rsqrt(self.running_var.view(shape) + self.epsilon)
+        if train:
+            mean, var = batch_moments(xf)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = ((xf - mean.view(shape)) * torch.rsqrt(var.view(shape)
+                                                   + self.epsilon)
              + self.bias.view(shape))
         return y.to(x.dtype)
 
@@ -100,8 +147,8 @@ class ConvBN(nn.Module):
         self.TFBatchNorm_0 = TFBatchNorm(features)
         self.activation = activation
 
-    def forward(self, x):
-        return self.activation(self.TFBatchNorm_0(self.Conv_0(x)))
+    def forward(self, x, train: bool = False):
+        return self.activation(self.TFBatchNorm_0(self.Conv_0(x), train))
 
 
 class InvertedResidual(nn.Module):
@@ -125,19 +172,20 @@ class InvertedResidual(nn.Module):
             self.Conv_3 = SameConv2d(in_ch, features, (1, 1))
             self.TFBatchNorm_3 = TFBatchNorm(features)
 
-    def forward(self, x, time_mask: Optional[torch.Tensor] = None):
+    def forward(self, x, time_mask: Optional[torch.Tensor] = None,
+                train: bool = False):
         inputs = x
         act = self.activation
-        x = act(self.TFBatchNorm_0(self.Conv_0(x)))
+        x = act(self.TFBatchNorm_0(self.Conv_0(x), train))
         if time_mask is not None:
             # re-zero the padded time rows before the depthwise conv, whose
             # temporal extent would otherwise read them (layers.py:112-116)
             x = torch.where(time_mask, x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
-        x = act(self.TFBatchNorm_1(self.Conv_1(x)))
-        x = self.TFBatchNorm_2(self.Conv_2(x))
+        x = act(self.TFBatchNorm_1(self.Conv_1(x), train))
+        x = self.TFBatchNorm_2(self.Conv_2(x), train)
         if hasattr(self, "Conv_3"):
-            inputs = self.TFBatchNorm_3(self.Conv_3(inputs))
+            inputs = self.TFBatchNorm_3(self.Conv_3(inputs), train)
         return x + inputs
 
 
@@ -174,7 +222,8 @@ class MfccNet(nn.Module):
             ch = out
         self.ConvBN_1 = ConvBN(ch, output_channels, (1, 1), (1, 1))
 
-    def forward(self, x, valid_rows: Optional[torch.Tensor] = None):
+    def forward(self, x, valid_rows: Optional[torch.Tensor] = None,
+                train: bool = False):
         x = x.to(self.dtype)
         if valid_rows is None:
             tmask = None
@@ -188,12 +237,12 @@ class MfccNet(nn.Module):
             m0 = lambda v: torch.where(tmask, v, zero)
             neg = lambda v: torch.where(tmask, v, ninf)
         x = m0(x)
-        x = m0(self.ConvBN_0(x))
+        x = m0(self.ConvBN_0(x, train))
         for i in range(len(self._BLOCKS)):
-            x = m0(getattr(self, f"InvertedResidual_{i}")(x, tmask))
+            x = m0(getattr(self, f"InvertedResidual_{i}")(x, tmask, train))
             if i in self._POOL_AFTER:
                 x = m0(max_pool_same(neg(x), (2, 2), (1, 2)))
-        return m0(self.ConvBN_1(x)).float()
+        return m0(self.ConvBN_1(x, train)).float()
 
 
 class TFGRUCell(nn.Module):
@@ -222,18 +271,23 @@ class MaskedGRU(nn.Module):
     ``return_state`` carry the recurrence across chunks, exactly: the
     returned finals are dynamic_rnn's frozen carry, the pre-mask output at
     t = seq_len-1 (the GRU output is its state), or the initial state for
-    an empty row (JAX ``layers.py:305-355``)."""
+    an empty row (JAX ``layers.py:305-355``).  With ``train`` each layer's
+    masked outputs go through dropout at ``drop_rate``
+    (tf.contrib.rnn.DropoutWrapper(output_keep_prob=1-drop_rate))."""
 
-    def __init__(self, in_dim: int, num_units: int, num_layers: int = 1):
+    def __init__(self, in_dim: int, num_units: int, num_layers: int = 1,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.num_units = num_units
         self.num_layers = num_layers
+        self.drop_rate = drop_rate
         for layer in range(num_layers):
             self.add_module(f"ScanTFGRUCell_{layer}", TFGRUCell(
                 in_dim if layer == 0 else num_units, num_units))
 
     def forward(self, inputs, seq_len, initial_state=None,
-                return_state: bool = False):
+                return_state: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, t, _ = inputs.shape
         x = inputs
         mask = (torch.arange(t, device=x.device)[None, :]
@@ -254,6 +308,21 @@ class MaskedGRU(nn.Module):
                 last = out[torch.arange(b, device=x.device), at_len]
                 finals.append(torch.where((seq_len > 0)[:, None], last, h0))
             x = out * mask
+            if train:
+                x = dropout(x, self.drop_rate, generator)
         if return_state:
             return x, finals
         return x
+
+
+def l2_regularization(module: nn.Module, scale: float = 1e-4
+                      ) -> torch.Tensor:
+    """``tf.contrib.layers.l2_regularizer``: ``scale * sum(w**2) / 2`` over
+    the conv and depthwise kernels only (ref: tinynet.py:10; JAX
+    ``layers.py:363-383``): the 4-D weights.  Dense and GRU kernels carry
+    no regularizer."""
+    leaves = [p for name, p in module.named_parameters()
+              if name.endswith("weight") and p.dim() == 4]
+    if not leaves:
+        return torch.zeros((), device=next(module.parameters()).device)
+    return scale * 0.5 * sum(torch.sum(torch.square(w)) for w in leaves)

@@ -1,22 +1,30 @@
-"""PixRefer generator — reference-conditioned pix2pix with alpha compositing.
+"""PixRefer GAN — reference-conditioned pix2pix with alpha compositing.
 
-Port of the generator side of ``voicepuppet_tpu/models/pixrefer.py``
-(:58-272): two 4-level strided-conv encoders (rendered face, 6 ch;
+Port of ``voicepuppet_tpu/models/pixrefer.py``.  The generator
+(:128-188, 258-272): two 4-level strided-conv encoders (rendered face, 6 ch;
 foreground reference, 3 ch) merged at 1/16 scale, 4 more encoder levels,
 7 deconv levels with U-Net skips, a tanh RGBA head, then ``composite``.
 
 BatchNorm is the reference's always-``training=True`` batch norm: the
 moments of the chunk being rendered, even at inference, accumulated in
 float32 (``StatelessBatchNorm``).  ``Generator`` takes and returns NHWC
-like the JAX module; inside it runs NCHW.  Its convs run in the dtype of
-their weights — ``Synthesizer`` casts them to bfloat16 on the card, as the
-JAX serving path runs ``gan_dtype=bfloat16`` — while BN moments, the tanh
-and the compositing stay float32.
+like the JAX module; inside it runs NCHW.  Its convs run in the compute
+dtype held on the module (``Generator.dtype``, float32 by default), each
+conv casting its weights to it, while BN moments, the tanh and the
+compositing stay float32.  Training sets it with the constructor's
+``dtype`` and keeps float32 parameters, as the JAX modules' ``dtype``
+does; ``set_conv_dtype`` sets it together with the weights' dtype, as
+``Synthesizer`` does for the JAX serving path's ``gan_dtype=bfloat16``.
+
+The discriminator (:113-126, 191-256) is the 70x70 PatchGAN: pad 1 and a
+VALID 4x4 conv per layer, strides 2, 2, 2, 1, 1, ``StatelessBatchNorm`` on
+the middle three, a sigmoid over float32 logits.  The trainer applies it
+three times per step (two real pairs, the fake), each call with its own
+batch moments.  ``discriminator_loss`` / ``generator_loss`` are the
+reference's losses (pixrefer.py:334-354).
 """
 
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +66,9 @@ class GenConv(nn.Module):
         self.Conv_0 = nn.Conv2d(in_ch, features, 4, 2, padding=0)
 
     def forward(self, x):
-        return self.Conv_0(pad_same(x, (4, 4), (2, 2)))
+        c = self.Conv_0
+        return F.conv2d(pad_same(x, (4, 4), (2, 2)), c.weight.to(x.dtype),
+                        c.bias.to(x.dtype), c.stride)
 
 
 class GenDeconv(nn.Module):
@@ -77,16 +87,22 @@ class GenDeconv(nn.Module):
                                                   padding=1)
 
     def forward(self, x):
-        return self.ConvTranspose_0(x)
+        c = self.ConvTranspose_0
+        return F.conv_transpose2d(x, c.weight.to(x.dtype),
+                                  c.bias.to(x.dtype), c.stride, c.padding,
+                                  c.output_padding)
 
 
 class Generator(nn.Module):
     """ref: pixrefer.py:128-188.  inputs [B,S,S,6], fg_ref [B,S,S,3]
-    (NHWC, in [-1,1]) -> raw tanh output [B,S,S,4] float32."""
+    (NHWC, in [-1,1]) -> raw tanh output [B,S,S,4] float32.  ``dtype``:
+    the conv compute dtype."""
 
-    def __init__(self, ngf: int = 64, out_channels: int = 4):
+    def __init__(self, ngf: int = 64, out_channels: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ngf = ngf
+        self.dtype = dtype
         bn = iter(range(17))
 
         def add_bn(ch):
@@ -128,9 +144,8 @@ class Generator(nn.Module):
         self.decoder_1 = GenDeconv(ch + ngf, out_channels)
 
     def forward(self, inputs, fg_ref):
-        dtype = self.encoder_1.Conv_0.weight.dtype
-        x = inputs.permute(0, 3, 1, 2).to(dtype)
-        fg = fg_ref.permute(0, 3, 1, 2).to(dtype)
+        x = inputs.permute(0, 3, 1, 2).to(self.dtype)
+        fg = fg_ref.permute(0, 3, 1, 2).to(self.dtype)
         bn = iter(getattr(self, f"StatelessBatchNorm_{i}") for i in range(17))
 
         layers = [self.encoder_1(x)]
@@ -188,26 +203,91 @@ class PixReferNet(nn.Module):
     fg_inputs [B,S,S,6] (only the first 3 channels reach G), targets
     [B,S,S,3], all in [-1,1] -> composite(G(...), targets)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.generator = Generator(cfg.ngf, 4)
+        self.generator = Generator(cfg.ngf, 4, dtype)
 
     def forward(self, inputs, fg_inputs, targets):
         return composite(self.generator(inputs, fg_inputs[..., :3]),
                          targets)
 
     def set_conv_dtype(self, dtype: torch.dtype) -> "PixReferNet":
-        """Cast the conv weights (not the BN affine) to ``dtype``."""
+        """Cast the conv weights (not the BN affine) to ``dtype`` and
+        compute the convs in it."""
+        self.generator.dtype = dtype
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.to(dtype)
         return self
 
 
-def init_pixrefer_(model: PixReferNet, generator: torch.Generator
-                   ) -> PixReferNet:
+class DiscrimConv(nn.Module):
+    """Pad 1, then a 4x4 VALID conv (ref: pixrefer.py:61-64)."""
+
+    def __init__(self, in_ch: int, features: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.Conv_0 = nn.Conv2d(in_ch, features, 4, stride, padding=0)
+
+    def forward(self, x):
+        c = self.Conv_0
+        return F.conv2d(F.pad(x, (1, 1, 1, 1)), c.weight.to(x.dtype),
+                        c.bias.to(x.dtype), stride=self.stride)
+
+
+class Discriminator(nn.Module):
+    """PatchGAN (ref: pixrefer.py:103-134): d_inputs, d_targets [B,S,S,3]
+    NHWC in [-1,1] -> sigmoid scores [B,S/8-2,S/8-2,1] float32.  ``dtype``
+    is the conv compute dtype (parameters stay float32); the sigmoid runs
+    on float32 logits, so its saturation near 0 and 1, which the -log(D)
+    losses read, does not change with it."""
+
+    def __init__(self, ndf: int = 64, n_layers: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_layers = n_layers
+        self.dtype = dtype
+        self.layer_1 = DiscrimConv(6, ndf, 2)
+        ch = ndf
+        for i in range(n_layers):
+            out = ndf * min(2 ** (i + 1), 8)
+            self.add_module(f"layer_{i + 2}", DiscrimConv(
+                ch, out, 1 if i == n_layers - 1 else 2))
+            self.add_module(f"StatelessBatchNorm_{i}", StatelessBatchNorm(out))
+            ch = out
+        self.add_module(f"layer_{n_layers + 2}", DiscrimConv(ch, 1, 1))
+
+    def forward(self, d_inputs, d_targets):
+        x = torch.cat([d_inputs, d_targets], dim=-1).permute(0, 3, 1, 2)
+        x = lrelu(self.layer_1(x.to(self.dtype)))
+        for i in range(self.n_layers):
+            x = getattr(self, f"layer_{i + 2}")(x)
+            x = lrelu(getattr(self, f"StatelessBatchNorm_{i}")(x))
+        x = getattr(self, f"layer_{self.n_layers + 2}")(x)
+        return torch.sigmoid(x.float()).permute(0, 2, 3, 1)
+
+
+def discriminator_loss(predict_real, predict_fake, eps: float = 1e-12):
+    """ref: pixrefer.py:334-340 (the real term doubled)."""
+    return torch.mean(-(torch.log(predict_real + eps) * 2.0
+                        + torch.log(1.0 - predict_fake + eps)))
+
+
+def generator_loss(predict_fake, targets, outputs, alphas, masks,
+                   perceptual, gan_weight: float, l1_weight: float,
+                   eps: float = 1e-12):
+    """ref: pixrefer.py:342-354 -> (total, gan term, l1 term)."""
+    gan = torch.mean(-torch.log(predict_fake + eps))
+    l1 = (torch.mean(torch.abs(targets - outputs))
+          + torch.mean(torch.abs(masks - alphas)) + torch.mean(perceptual))
+    return gan * gan_weight + l1 * l1_weight, gan, l1
+
+
+def init_pixrefer_(model: nn.Module, generator: torch.Generator
+                   ) -> nn.Module:
     """Fresh weights with the JAX init's distributions: conv kernels
-    N(0, 0.02), zero conv biases, BN scale 1 + N(0, 0.02), BN bias 0."""
+    N(0, 0.02), zero conv biases, BN scale 1 + N(0, 0.02), BN bias 0.
+    Serves the generator (``PixReferNet``) and the ``Discriminator``."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

@@ -1,13 +1,15 @@
-"""The BFMNet mesh-video entry point (port of ``infer_bfmnet`` and its
-helpers in ``voicepuppet_tpu/pipeline/infer_drivers.py``:30-117; ref:
-voicepuppet/bfmnet/infer_bfmnet.py:150-235).
+"""Inference drivers: the BFMNet mesh video (port of ``infer_bfmnet`` and
+its helpers in ``voicepuppet_tpu/pipeline/infer_drivers.py``:30-117; ref:
+voicepuppet/bfmnet/infer_bfmnet.py:150-235) and ``infer_pixrefer``
+(:120-143; ref: infer_pixrefer.py).
 
 audio -> BFMNet coefficients (a blink pattern in the ear input) -> the
 mesh with a sweeping yaw -> 672² frames through ``render_colors_auto``
 (the flat raster K1) in chunks of 8 -> mp4.  At 672² K1 sees nine times
-the pixels of the serving path's 224².  The other entry points there
-(``infer_pixrefer``, ``infer_pixflow``, ``infer_bfm_pixflow``,
-``infer_atvgnet``) need models and trainers that are not ported yet.
+the pixels of the serving path's 224².  ``infer_pixrefer`` runs a
+PixRefer trainer's generator over a prepared 3-panel frame folder.  The
+other entry points there (``infer_pixflow``, ``infer_bfm_pixflow``,
+``infer_atvgnet``) need models that are not ported.
 """
 
 from __future__ import annotations
@@ -126,3 +128,30 @@ def infer_bfmnet(cfg: Config, synthesizer, identity, audio_path_or_pcm,
     save_image_seq_video(frames, os.path.join(out_dir, "bfmnet.mp4"),
                          cfg.frame_rate, audio_path_for_mux)
     return frames
+
+
+def infer_pixrefer(cfg: Config, trainer, state, panel_paths,
+                   out_dir: str = "output") -> np.ndarray:
+    """PixRefer over a prepared 3-panel frame folder (ref:
+    infer_pixrefer.py): frame 0 is the reference; every frame's rendered
+    face drives the generator (``trainer.infer``, float32 convs).  Writes
+    ``<i>.jpg`` per frame and returns the frames [T,S,S,3] in [0,1]."""
+    from voicepuppet_torch.data.loaders import load_image, save_image
+    s = cfg.pixrefer.img_size
+    ref = load_image(panel_paths[0])
+    face3d_ref = ref[:, s:2 * s, :]
+    fg_ref = ref[:, :s, :] * ref[:, 2 * s:, :]
+    fg_inputs = np.concatenate([fg_ref, np.zeros_like(fg_ref)],
+                               axis=-1)[None]
+    frames = []
+    os.makedirs(out_dir, exist_ok=True)
+    for i, path in enumerate(panel_paths):
+        panel = load_image(path)
+        inputs = np.concatenate([face3d_ref, panel[:, s:2 * s, :]],
+                                axis=-1)[None]
+        out, _ = trainer.infer(state, inputs, fg_inputs,
+                               panel[:, :s, :][None])
+        frame = out[0].cpu().numpy()
+        frames.append(frame)
+        save_image(os.path.join(out_dir, f"{i}.jpg"), frame)
+    return np.stack(frames)

@@ -18,6 +18,7 @@ numpy while the card computes the next chunks (pipeline depth 4, each task
 writing its own frame slice).
 
 Weights come from fresh random draws (``SynthesisAssets.demo``), from the
+port's own training checkpoints (``from_checkpoints``), from the
 reference's TF checkpoints (``from_tf_checkpoints``) or from TF-named npz
 dumps (``from_npz``), read with no TensorFlow by ``tools/``.
 
@@ -25,9 +26,7 @@ dumps (``from_npz``), read with no TensorFlow by ``tools/``.
 equals the flat kernel's; the streaming driver (``pipeline/streaming.py``)
 reuses :meth:`Synthesizer.frame_program_for` and the fetch helpers.
 
-Not ported (ROADMAP.md Queue 1): ``SynthesisAssets.from_checkpoints``
-(orbax directories, with the training slice) and the multi-device
-``mesh`` options.
+Not ported (ROADMAP.md Queue 1): the multi-device ``mesh`` options.
 """
 
 from __future__ import annotations
@@ -56,6 +55,7 @@ from voicepuppet_torch.ops import render_colors_auto
 from voicepuppet_torch.pipeline.align import head_sway_angles
 from voicepuppet_torch.tools import tf_checkpoint as tfc
 from voicepuppet_torch.tools.tf_bundle import read_checkpoint
+from voicepuppet_torch.weights import check_state_dict
 
 TRANSFER_FORMATS = ("yuv420", "rgb8")
 DRAIN_DEPTH = 4         # chunks in flight between dispatch and drain
@@ -573,7 +573,8 @@ def _module_state(make) -> Dict[str, torch.Tensor]:
 
 class SynthesisAssets:
     """Builds a Synthesizer from fresh random weights (the demo path), from
-    the reference's TF checkpoints, or from TF-named npz dumps."""
+    the trainers' checkpoint directories, from the reference's TF
+    checkpoints, or from TF-named npz dumps."""
 
     @staticmethod
     def init_trees(cfg: Config, seed: int = 0
@@ -634,6 +635,44 @@ class SynthesisAssets:
         return Synthesizer(cfg, face_model,
                            *SynthesisAssets.load_npz_weights(
                                cfg, bfmnet_npz, pixrefer_g_npz),
+                           mesh=mesh, **synth_kwargs)
+
+    @staticmethod
+    def load_checkpoint_weights(cfg: Config, bfmnet_ckpt_dir: str,
+                                pixrefer_ckpt_dir: str
+                                ) -> Tuple[Dict[str, torch.Tensor],
+                                           Dict[str, torch.Tensor]]:
+        """The latest checkpoints of the two trainers
+        (``train/checkpoint.py``) -> (bfmnet_state, g_state): BFMNet's
+        parameters and running BN moments, the generator's parameters.
+        A directory with no checkpoint, or a state that does not match
+        ``cfg``'s modules, raises."""
+        from voicepuppet_torch.train.checkpoint import CheckpointManager
+        states = []
+        for directory, key, make in (
+                (bfmnet_ckpt_dir, "model", lambda: BFMNet(cfg.bfmnet)),
+                (pixrefer_ckpt_dir, "gen",
+                 lambda: px.PixReferNet(cfg.pixrefer))):
+            blob = CheckpointManager(directory).load()
+            if blob is None:
+                raise FileNotFoundError(f"no checkpoint in {directory}")
+            check_state_dict(_module_state(make), blob[key],
+                             f"checkpoint {directory}")
+            states.append(blob[key])
+        return states[0], states[1]
+
+    @staticmethod
+    def from_checkpoints(cfg: Config, bfmnet_ckpt_dir: str,
+                         pixrefer_ckpt_dir: str, face_model=None,
+                         mesh=None, **synth_kwargs) -> Synthesizer:
+        """Compose the two trained models from the trainers' checkpoint
+        directories (the reference restores two scoped checkpoints into
+        one graph; infer_bfmvid.py:207-218)."""
+        face_model = face_model or bfm_mod.synthetic_bfm(num_theta=48,
+                                                         num_phi=48)
+        return Synthesizer(cfg, face_model,
+                           *SynthesisAssets.load_checkpoint_weights(
+                               cfg, bfmnet_ckpt_dir, pixrefer_ckpt_dir),
                            mesh=mesh, **synth_kwargs)
 
     @staticmethod
@@ -727,8 +766,9 @@ def main(argv=None):
     """CLI of the reference script (``infer_bfmvid.py --config_path cfg.yml
     image audio``): ``python -m voicepuppet_torch.pipeline.synthesize
     [--config_path cfg.yml] [--out_dir output] [--background_dir dir]
-    [--bfmnet_tf_ckpt P --pixrefer_tf_ckpt P | --bfmnet_npz F
-    --pixrefer_npz F] [--identity_npz F | --landmark_model F --rnet_npz F
+    [--bfmnet_ckpt D --pixrefer_ckpt D | --bfmnet_tf_ckpt P
+    --pixrefer_tf_ckpt P | --bfmnet_npz F --pixrefer_npz F]
+    [--identity_npz F | --landmark_model F --rnet_npz F
     | --rnet_pb F] [--device cuda] image audio``.  With no weight flags it
     serves random weights; with no identity flags, the synthetic one."""
     import argparse
@@ -739,6 +779,10 @@ def main(argv=None):
     p.add_argument("--out_dir", default="output")
     p.add_argument("--background_dir", default="background")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--bfmnet_ckpt", default=None,
+                   help="checkpoint directory of the BFMNet trainer")
+    p.add_argument("--pixrefer_ckpt", default=None,
+                   help="checkpoint directory of the PixRefer trainer")
     p.add_argument("--bfmnet_tf_ckpt", default=None,
                    help="reference TF checkpoint prefix (e.g. "
                         "ckpt_bfmnet/bfmnet-65000), read with no TF")
@@ -764,23 +808,30 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = load_config(args.config_path)
+    sources = (args.bfmnet_ckpt, args.bfmnet_tf_ckpt, args.bfmnet_npz)
+    if sum(b is not None for b in sources) > 1:
+        p.error("--bfmnet_ckpt, --bfmnet_tf_ckpt and --bfmnet_npz: give "
+                "one weight source, not several")
+    if (args.bfmnet_ckpt is None) != (args.pixrefer_ckpt is None):
+        p.error("--bfmnet_ckpt and --pixrefer_ckpt must be given together")
     if (args.bfmnet_tf_ckpt is None) != (args.pixrefer_tf_ckpt is None):
         p.error("--bfmnet_tf_ckpt and --pixrefer_tf_ckpt must be given "
                 "together")
     if (args.bfmnet_npz is None) != (args.pixrefer_npz is None):
         p.error("--bfmnet_npz and --pixrefer_npz must be given together")
-    if args.bfmnet_tf_ckpt is not None and args.bfmnet_npz is not None:
-        p.error("--bfmnet_tf_ckpt and --bfmnet_npz: give TF checkpoints or "
-                "npz weights, not both")
     if args.rnet_npz is not None and args.rnet_pb is not None:
         p.error("--rnet_npz and --rnet_pb: give one R-Net, not both")
     rnet = args.rnet_npz or args.rnet_pb
     if (args.landmark_model is None) != (rnet is None):
         p.error("--landmark_model and --rnet_npz/--rnet_pb must be given "
                 "together (the face photo's identity path needs both)")
-    if args.bfmnet_tf_ckpt is not None or args.bfmnet_npz is not None:
+    if any(b is not None for b in sources):
         face_model = _resolve_face_model(cfg)
-        if args.bfmnet_tf_ckpt is not None:
+        if args.bfmnet_ckpt is not None:
+            synth = SynthesisAssets.from_checkpoints(
+                cfg, args.bfmnet_ckpt, args.pixrefer_ckpt,
+                face_model=face_model, device=args.device)
+        elif args.bfmnet_tf_ckpt is not None:
             synth = SynthesisAssets.from_tf_checkpoints(
                 cfg, args.bfmnet_tf_ckpt, args.pixrefer_tf_ckpt,
                 face_model=face_model, device=args.device)

@@ -794,3 +794,62 @@ def write_graphdef_consts(arrays: Dict[str, np.ndarray], path: str) -> None:
                     + _encode_bytes_field(2, b"Const")
                     + _encode_bytes_field(5, attr))
             f.write(_encode_bytes_field(1, node))
+
+
+# ---------------------------------------------------------------------------
+# the released slim VGG-16 (vgg_16.ckpt) for the perceptual loss
+# ---------------------------------------------------------------------------
+
+# the reference restores conv1-conv4 (train_pixrefer.py:80-92); its exclude
+# list (vgg_simple.py:160) drops fc6/7/8, conv5 and the pools
+VGG16_EXCLUDE_PREFIXES = (
+    "vgg_16/fc6", "vgg_16/pool4", "vgg_16/conv5", "vgg_16/pool5",
+    "vgg_16/fc7", "vgg_16/global_pool", "vgg_16/fc8/squeezed", "vgg_16/fc8",
+    # bookkeeping variables of slim checkpoints
+    "global_step", "vgg_16/mean_rgb",
+)
+
+
+def vgg16_slim_name_map() -> List[Tuple[str, str]]:
+    """(slim checkpoint name, state_dict key) rows:
+    ``vgg_16/conv{i}/conv{i}_{j}/{weights,biases}`` ->
+    ``conv{i}_{j}.{weight,bias}`` of ``models.vgg.VGG16Features``."""
+    from voicepuppet_torch.models.vgg import STACKS
+    rows: List[Tuple[str, str]] = []
+    for reps, stack in STACKS:
+        for j in range(1, reps + 1):
+            slim = f"vgg_16/{stack}/{stack}_{j}"
+            rows.append((f"{slim}/weights", f"{stack}_{j}.weight"))
+            rows.append((f"{slim}/biases", f"{stack}_{j}.bias"))
+    return rows
+
+
+def load_vgg16_checkpoint(path: str, target):
+    """``vgg_16.ckpt`` (V1 or V2), read with no TensorFlow ->
+    ``(state, loaded, missing)`` for ``target`` (a ``VGG16Features`` or
+    its state_dict).  Slim kernels are HWIO and go to torch's OIHW.  Any
+    variable that is neither mapped nor on the reference's exclude list
+    raises, so a renamed release fails loudly; a mis-shaped trunk variable
+    lands in ``missing``."""
+    import torch
+    arrays = read_checkpoint(path)
+    mapped = dict(vgg16_slim_name_map())
+    for name in arrays:
+        if name not in mapped and not any(
+                name.startswith(p) for p in VGG16_EXCLUDE_PREFIXES):
+            raise ValueError(f"unexpected variable {name!r} in vgg_16 "
+                             "checkpoint (not in the conv1-4 map or the "
+                             "exclude list)")
+    own = target.state_dict() if hasattr(target, "state_dict") else target
+    state, loaded, missing = {}, [], []
+    for tf_name, key in mapped.items():
+        val = arrays.get(tf_name)
+        if val is not None and val.ndim == 4:
+            val = np.transpose(val, (3, 2, 0, 1))
+        if val is None or key not in own or tuple(own[key].shape) \
+                != val.shape:
+            missing.append(tf_name)
+            continue
+        state[key] = torch.from_numpy(np.ascontiguousarray(val, np.float32))
+        loaded.append(tf_name)
+    return state, loaded, missing

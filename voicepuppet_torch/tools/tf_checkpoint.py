@@ -200,9 +200,9 @@ def pixrefer_generator_name_map() -> List[Row]:
 
 
 def pixrefer_discriminator_name_map() -> List[Row]:
-    """Rows for the PatchGAN discriminator (pixrefer.py:103-134).  The
-    port has no discriminator module until the training slice; the rows
-    load into any state_dict keyed like the JAX tree."""
+    """Rows for the PatchGAN discriminator (pixrefer.py:103-134) into
+    ``models.pixrefer.Discriminator``, whose keys follow the JAX tree
+    (``layer_{i}.Conv_0``, ``StatelessBatchNorm_{k}``)."""
     rows: List[Row] = []
     bn_i = 0
     for i in range(1, 6):

@@ -19,6 +19,12 @@ state_dict key one to one, with these layout changes:
     into ``TFBatchNorm``)
   * ``StatelessBatchNorm`` ``scale`` -> ``weight``
 
+The same rules carry every parameter tree the trainers hold: BFMNet's
+``batch_stats``, the discriminator's params, the VGG trunk's
+``conv{i}_{j}`` and the optax Adam state (``mu``/``nu`` trees and the
+update count; :func:`adam_state_from_optax`).  :func:`flax_from_state_dict`
+and :func:`adam_state_to_flax` go back.
+
 Leaves may be numpy arrays or anything ``np.asarray`` takes.  The same
 rule serves the TF-named loaders (``tools/tf_checkpoint.py``): a TF
 variable is first put into its JAX layout and path, then through
@@ -28,7 +34,7 @@ inverse used by the exports.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -129,3 +135,67 @@ def load_flax_(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
             for k in bad[:5]))
     module.load_state_dict(state, strict=True)
     return module
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor],
+                         template: Mapping) -> Dict:
+    """A state_dict -> the JAX tree shaped like ``template`` (flax
+    variables or a bare params tree; only its paths are read), as numpy
+    arrays: the inverse of :func:`state_dict_from_flax`."""
+    def build(tree, path):
+        return {k: build(v, path + (k,)) if isinstance(v, Mapping)
+                else flax_leaf(path + (k,), state[state_key_for(
+                    path + (k,))].detach().cpu().float().numpy())
+                for k, v in tree.items()}
+    if set(template) & set(_COLLECTIONS):
+        return {c: build(template[c], ()) for c in _COLLECTIONS
+                if c in template}
+    return build(template, ())
+
+
+def _find_adam(opt_state) -> Any:
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state) -> Dict[str, Any]:
+    """An optax ``chain([clip_by_global_norm,] adam(schedule))`` state ->
+    ``{"count": int, "mu": state_dict, "nu": state_dict}`` for
+    :func:`load_adam_state_`."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    return {"count": int(np.asarray(adam.count)),
+            "mu": state_dict_from_flax(adam.mu),
+            "nu": state_dict_from_flax(adam.nu)}
+
+
+def load_adam_state_(optimizer: torch.optim.Optimizer,
+                     module: torch.nn.Module, adam: Mapping[str, Any]):
+    """Put ``adam`` (:func:`adam_state_from_optax`) into a port
+    ``ReferenceAdam`` over ``module.parameters()``."""
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "mu": adam["mu"][name].to(p.device, p.dtype).clone(),
+            "nu": adam["nu"][name].to(p.device, p.dtype).clone()}
+    for group in optimizer.param_groups:
+        group["count"] = int(adam["count"])
+
+
+def adam_state_to_flax(optimizer: torch.optim.Optimizer,
+                       module: torch.nn.Module, template: Mapping
+                       ) -> Dict[str, Any]:
+    """A port ``ReferenceAdam``'s state -> ``{"count", "mu", "nu"}`` with
+    ``mu``/``nu`` shaped like the params tree ``template``."""
+    names = dict(module.named_parameters())
+    moments = {m: flax_from_state_dict(
+        {n: optimizer.state[p][m] for n, p in names.items()}, template)
+        for m in ("mu", "nu")}
+    return {"count": optimizer.param_groups[0]["count"], **moments}
