@@ -120,6 +120,33 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
  17. from_checkpoints   the clip served from the checkpoint directories of
                         14 and 15, byte-identical to the same state_dicts
                         served directly, K1 once per chunk.
+ 18. pixflow            PixFlowTrainer at Config() (512², ngf 64, ndf 48,
+                        batch 3) on 512x1536 3-panel JPEG clips: fit with a
+                        checkpoint restored equal; ms per step in float32
+                        and bfloat16 with the D / G split, peak memory, the
+                        losses; infer_bfm_pixflow on the 55-frame clip (the
+                        main path's BFMNet, K1 at 512² exactly once per 8
+                        frames, 7 launches; 55 frames, not constant); K1 at
+                        512², B = 8 bit for bit against its plain version,
+                        its time, bound and ratio; infer_pixflow over one
+                        clip's panels.
+ 19. atnet              ATNetTrainer at Config() (MfccNet width 1.0, batch
+                        16, T 25, dropout 0.25) on coefficient / landmark /
+                        wav clips: fit, ms per step, the device's idle share
+                        over fit steps with the data pipeline, peak memory.
+ 20. vgnet              VGNetTrainer at Config() (128², batch 4, T 15) on
+                        JPEG clips with landmarks, ``alternative`` 4: ms per
+                        step of the D phase and of the G phase, peak memory;
+                        infer_atvgnet on the 55-frame clip (ATNet of 19): 55
+                        uint8 frames at 128².
+ 21. zoo card vs cpu    one SGD step of each of the three trainers at the
+                        CPU tests' widths on the card and on the CPU from
+                        the same weights and batch, dropout off: losses and
+                        updates within the CPU tests' bands (every leaf at
+                        1e-3 of its max update, true-zero leaves' |g| at
+                        phase 16's 1e-5), the CPU's reading on the batch's
+                        rows swapped inside the update band and the card's
+                        with TF32 on outside it; VGNet's D scores.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that did not launch fails the script.
@@ -1109,6 +1136,30 @@ BFM_LEAF, BFM_TRUNK, BFM_TRUNK_L2, BFM_NULL = 1e-4, 0.15, 2e-2, 1e-4
 GAN_UPDATE, GAN_NULL, GAN_LR = 3e-3, 1e-5, 0.1
 
 
+def step_offsets(run, ref, zero=GAN_NULL):
+    """``run``, ``ref``: (losses, {part: {leaf: SGD update at GAN_LR}}).
+    The losses' largest relative difference, and per part the updates'
+    largest |difference| over each leaf's max update; a leaf whose
+    reference |gradient| is under ``zero`` (float noise on a true gradient
+    of zero) is held by the run's largest |gradient| instead, under
+    "null"."""
+    import numpy as np
+    (mc, uc), (mh, uh) = run, ref
+    worst = {"loss": max(abs(float(mc[k]) / float(mh[k]) - 1) for k in mh),
+             "null": 0.0}
+    for part, leaves in uh.items():
+        worst[part] = 0.0
+        for n, w in leaves.items():
+            scale = np.abs(w).max()
+            if scale / GAN_LR < zero:
+                worst["null"] = max(
+                    worst["null"], float(np.abs(uc[part][n]).max()) / GAN_LR)
+            else:
+                worst[part] = max(worst[part], float(
+                    np.abs(uc[part][n] - w).max() / scale))
+    return worst
+
+
 def phase_train_card_vs_cpu(dev, card):
     """16. One BFMNet step and one PixRefer step at the tests' widths
     (tests/_torch_port_cases.py: width-mult 0.25, 64-wide BFMNet; PixRefer
@@ -1199,29 +1250,10 @@ def phase_train_card_vs_cpu(dev, card):
                      for n, v in mod.state_dict().items()}
                  for k, mod in (("gen", st.gen), ("disc", st.disc))})
 
-    def off(run, ref):
-        """Losses' largest relative difference, and the updates' largest
-        |difference| over each leaf's max update (D, G) or, for a leaf
-        whose update is float noise, its largest |gradient|."""
-        (mc, uc), (mh, uh) = run, ref
-        worst = {"loss": max(abs(mc[k] / mh[k] - 1) for k in mh),
-                 "disc": 0.0, "gen": 0.0, "null": 0.0}
-        for part in ("disc", "gen"):
-            for n, w in uh[part].items():
-                scale = np.abs(w).max()
-                if scale / GAN_LR < GAN_NULL:
-                    worst["null"] = max(
-                        worst["null"],
-                        float(np.abs(uc[part][n]).max()) / GAN_LR)
-                else:
-                    worst[part] = max(worst[part], float(
-                        np.abs(uc[part][n] - w).max() / scale))
-        return worst
-
     cpu = gan_step("cpu", pbatch)
-    card_run = off(gan_step(dev, pbatch), cpu)
-    rows = off(gan_step("cpu", swapped), cpu)
-    tf32 = off(gan_step(dev, pbatch, tf32=True), cpu)
+    card_run = step_offsets(gan_step(dev, pbatch), cpu)
+    rows = step_offsets(gan_step("cpu", swapped), cpu)
+    tf32 = step_offsets(gan_step(dev, pbatch, tf32=True), cpu)
     log(f"train card vs cpu: PixRefer SGD step (256², ngf 8, ndf 8, batch "
         f"2, full VGG) losses rel {card_run['loss']:.3g} (band {LOSS_REL}); "
         f"updates / leaf max: D {card_run['disc']:.3g}, G through the "
@@ -1281,6 +1313,498 @@ def phase_from_checkpoints(cfg, face_model, bfm_dir, px_dir, panel, pcm,
         f"with the load; {card}")
 
 
+
+# ---- 18-21. the rest of the model zoo -----------------------------------------
+
+PF_STEPS = 5                 # timed PixFlow steps per dtype, after 2 warm
+ZOO_STEPS = 8                # timed ATNet / VGNet steps (median)
+VG_ALTERNATIVE = 4           # VGNet phase length: steps 0-3 D, 4-7 G
+# card vs CPU, updates over a leaf's max update: the CPU tests' JAX-vs-port
+# band 1e-3 (tests/test_torch_atvgnet.py, test_torch_pixflow.py) for every
+# leaf, ATNet's MfccNet trunk included; the losses and the card's |g| on
+# the leaves with a true gradient of zero as phase 16 holds them
+# (LOSS_REL, GAN_NULL).  Those leaves are told by the CPU's |g| under
+# 1e-4, the CPU tests' rule: their float noise reaches 1.2e-5 on the CPU
+# (PixFlow's diffnet.enc_1 bias), the smallest true gradient is 7.7e-4
+# (VGNet's D).  The update band is placed per trainer by two readings of
+# the same run: the CPU against itself on the batch's rows swapped (float32
+# sum order alone) inside it, the card with TF32 convs and matmuls outside
+ZOO_UPDATE, ZOO_ZERO = 1e-3, 1e-4
+
+def write_landmark_image_dataset(root, rng, clips, frames, s):
+    """VGNet clips: ``<i>.jpg`` frames at ``s``² and 68 landmarks per frame
+    on a face-shaped ring, in the 224-pixel frame the stream expects."""
+    import numpy as np
+    from PIL import Image
+    ang = np.linspace(0, 2 * np.pi, 68, endpoint=False)
+    ring = np.stack([112 + 70 * np.cos(ang), 112 + 85 * np.sin(ang)], -1)
+    lines = []
+    for k in range(clips):
+        d = os.path.join(root, f"faces{k}")
+        os.makedirs(d)
+        np.savetxt(os.path.join(d, "landmark.txt"),
+                   (ring[None] + rng.randn(frames, 68, 2) * 2).reshape(
+                       frames, 136), fmt="%.3f", delimiter=",")
+        for i in range(frames):
+            Image.fromarray((rng.rand(s, s, 3) * 255).astype(
+                np.uint8)).save(os.path.join(d, f"{i}.jpg"))
+        lines.append(f"{d}|{frames}")
+    path = os.path.join(root, "face_list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def timed_steps(step, batches, warm, n):
+    """Run ``step(batch, marks)`` over ``batches`` (``warm`` + ``n``) and
+    return the ms of each of the last ``n`` between their first and last
+    mark, with each step's split at its middle marks, and their metrics."""
+    import torch
+    rows = []
+    for i, batch in enumerate(batches[:warm + n]):
+        marks = []
+        m = step(batch, marks)
+        if i >= warm:
+            rows.append((marks, m))
+    torch.cuda.synchronize()
+    spans = [[elapsed_ms(a, b) for a, b in zip(mk, mk[1:])] for mk, _ in rows]
+    return spans, [{k: float(v) for k, v in m.items()} for _, m in rows]
+
+
+def phase_pixflow(cfg_main, synth, identity, panel, pcm, dev, counts,
+                  reset_counts, card, work):
+    """18. PixFlow at Config() (512², ngf 64, ndf 48, batch 3) on 3-panel
+    JPEG clips: fit with a checkpoint that restores equal, ms per step in
+    float32 and bfloat16 with the D / G split, peak memory; then
+    infer_bfm_pixflow on the 55-frame clip (K1 at 512² once per 8 frames),
+    K1 at 512², B = 8 against its plain version, and infer_pixflow over
+    the panels."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch import ops as tops
+    from voicepuppet_torch.data.generators import (BackgroundBatches,
+                                                   FileSource,
+                                                   PixFlowBatcher,
+                                                   prefetch_to_device)
+    from voicepuppet_torch.face3d import morph
+    from voicepuppet_torch.face3d import raster as plain
+    from voicepuppet_torch.ops import raster_selftest
+    from voicepuppet_torch.pipeline import infer_drivers
+    from voicepuppet_torch.pipeline import synthesize as syn
+    from voicepuppet_torch.train.checkpoint import CheckpointManager
+    from voicepuppet_torch.train.metrics import MetricsLogger
+    from voicepuppet_torch.train.pixflow_trainer import (DTYPES,
+                                                         PixFlowTrainer)
+    os.makedirs(work, exist_ok=True)
+    cfg = tcfg.Config()
+    p = cfg.pixflow
+    s = p.img_size
+    lst = write_panel_dataset(work, np.random.RandomState(SEED + 2), 2, 6, s)
+    fit_steps = 3                      # global step 6: a checkpoint
+    cfg = dataclasses.replace(
+        cfg, dataset=dataclasses.replace(cfg.dataset,
+                                         train_dataset_path=lst),
+        pixflow=dataclasses.replace(p, training=dataclasses.replace(
+            p.training, save_interval=2 * fit_steps)))
+    src = FileSource(lst, cfg, load_images=True)
+    states = {}
+    for mode in ("float32", "bfloat16"):
+        trainer = PixFlowTrainer(cfg, train_dtype=DTYPES[mode], device=dev)
+        state = trainer.init_state(seed=SEED)
+        bg = BackgroundBatches(lambda i: iter(PixFlowBatcher(
+            cfg, src, seed=i)), num_workers=4)
+        batches = prefetch_to_device(bg, dev)
+        try:
+            if mode == "float32":
+                t0 = time.perf_counter()
+                ckpt = CheckpointManager(os.path.join(work, "ckpt_pixflow"),
+                                         2, cfg.pixflow.training.save_interval)
+                logger = MetricsLogger(os.path.join(work, "log_pixflow"),
+                                       "pixflow", print_every=0)
+                state = trainer.fit(state, batches, fit_steps, logger, ckpt)
+                logger.close()
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                if ckpt.steps() != [2 * fit_steps]:
+                    raise AssertionError(f"pixflow checkpoints {ckpt.steps()}")
+                restored = ckpt.restore(trainer.init_state(seed=SEED + 1))
+                same_state(restored.state_dict(), state.state_dict(),
+                           "pixflow restore")
+            timed = [next(batches) for _ in range(2 + PF_STEPS)]
+        finally:
+            bg.close()
+        gen = torch.Generator(dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        spans, losses = timed_steps(
+            lambda b, mk: trainer.train_step(state, b, gen, marks=mk)[1],
+            timed, 2, PF_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(np.isfinite(list(r.values())).all() for r in losses):
+            raise AssertionError(f"pixflow {mode} losses {losses}")
+        total = [a + b for a, b in spans]
+        k = total.index(median(total))
+        log(f"pixflow train {mode}: {s}² ngf {p.ngf} ndf {p.ndf} batch "
+            f"{p.batch_size}, {median(total):.2f} ms/step median over "
+            f"{PF_STEPS} steps after 2 warm (two G forwards + D step "
+            f"{spans[k][0]:.2f}, G step {spans[k][1]:.2f}; CUDA events); "
+            f"peak memory {peak:.2f} GiB; last losses "
+            f"{json.dumps({n: round(v, 5) for n, v in losses[-1].items()})}"
+            f"{f'; fit {fit_steps} steps + checkpoint {fit_s:.2f} s, restored equal' if mode == 'float32' else ''}"
+            f"; {card}")
+        states[mode] = (trainer, state)
+    trainer, state = states["float32"]
+    del states
+
+    n_k1 = -(-FRAMES // VIDEO_CHUNK)
+    with tempfile.TemporaryDirectory() as td:
+        reset_counts()
+        t0 = time.perf_counter()
+        frames = infer_drivers.infer_bfm_pixflow(
+            cfg_main, synth, trainer, state, identity, panel, pcm,
+            out_dir=td, chunk=VIDEO_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        wrote = len(os.listdir(td))
+    u8 = (np.clip(frames, 0, 1) * 255).astype(np.uint8)
+    if launched["raster_flat"] != n_k1 or sum(launched.values()) != n_k1:
+        raise AssertionError(f"infer_bfm_pixflow launches {launched}: K1 "
+                             f"once per {VIDEO_CHUNK} frames")
+    if (u8.shape != (FRAMES, s, s, 3) or not u8.std(axis=0).max() > 0
+            or wrote != FRAMES):
+        raise AssertionError(f"infer_bfm_pixflow frames {u8.shape}, wrote "
+                             f"{wrote}")
+    log(f"pixflow infer_bfm_pixflow: {FRAMES} frames -> {u8.shape} (uint8 "
+        f"of the [0,1] output, not constant, {wrote} JPEGs) in {wall:.3f} s "
+        f"wall, K1 launches {launched['raster_flat']} (ceil({FRAMES}/"
+        f"{VIDEO_CHUNK}) at {s}²); {card}")
+
+    with torch.inference_mode():
+        coeff = syn.splice_coeff_sequence(
+            identity.bfmcoeff, synth.predict_expressions(pcm))[:VIDEO_CHUNK]
+        rec = morph.reconstruct_rotation(
+            coeff, synth.fm, torch.zeros((VIDEO_CHUNK, 3), device=dev))
+        scale = s / 224.0
+        verts = torch.cat([(112.0 - rec.face_shape[..., :2] * 112.0) * scale,
+                           rec.face_shape[..., 2:3] * scale], -1).contiguous()
+        colors = torch.floor(torch.clamp(rec.face_color, 0.0,
+                                         255.0)).contiguous()
+        tri = synth.fm.tri
+        got = tops.render_colors_auto(verts, colors, tri, h=s, w=s)
+        want = plain.render_colors(verts, colors, tri, s, s)
+        torch.cuda.synchronize()
+        raster_selftest.expect_equal(got[1], want[1], "512² K1 mask")
+        raster_selftest.expect_equal(got[0], want[0], "512² K1 image")
+        err = int((got[0].int() - want[0].int()).abs().max())
+        k_ms = cuda_ms(lambda: tops.render_colors_auto(
+            verts, colors, tri, h=s, w=s), 50, 5)
+        p_ms = cuda_ms(lambda: plain.render_colors(verts, colors, tri, s, s),
+                       3, 1)
+        winner, _ = plain.rasterize_winner(verts, tri, s, s)
+        bound, bound_by, nbytes, ops, _ = raster_bound_ms(
+            verts, colors, tri, winner, s, s)
+    log(f"raster {s}² B={VIDEO_CHUNK}: K1 bit-exact kernel == plain; "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
+        f"{k_ms / bound:.2f}; {n_k1} launches per infer_bfm_pixflow call; "
+        f"{card}")
+
+    clip0 = sorted(os.listdir(os.path.join(work, "panels0")),
+                   key=lambda n: int(n.split(".")[0]))
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        pf = infer_drivers.infer_pixflow(
+            cfg, trainer, state,
+            [os.path.join(work, "panels0", n) for n in clip0], td)
+        wall_p = time.perf_counter() - t0
+    if pf.shape != (len(clip0), s, s, 3) or not np.isfinite(pf).all():
+        raise AssertionError(f"infer_pixflow frames {pf.shape}")
+    log(f"pixflow infer_pixflow: {len(clip0)} panels -> {pf.shape} in "
+        f"{wall_p:.3f} s; {card}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return dict(launches=launched["raster_flat"], err=err)
+
+
+def phase_atnet(dev, card, work):
+    """19. ATNet at Config() (MfccNet width 1.0, 128-wide, batch 16, T 25,
+    dropout 0.25) on on-disk coefficient/landmark/wav clips: fit, ms per
+    step, the device's idle share over fit steps with the data pipeline,
+    peak memory.  Returns the trainer and state for phase 20."""
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.data.generators import (ATNetBatcher, FileSource,
+                                                   prefetch_to_device)
+    from voicepuppet_torch.models.atnet import synthetic_pca_component
+    from voicepuppet_torch.train.atnet_trainer import ATNetTrainer
+    from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
+    os.makedirs(work, exist_ok=True)
+    lst = write_bfm_dataset(work, np.random.RandomState(SEED + 3), 4, 240)
+    cfg = tcfg.Config()
+    a = cfg.atnet
+    comp = synthetic_pca_component(a.pca_components, a.landmark_size)
+    mean = np.zeros((a.landmark_size,), np.float32)
+    trainer = ATNetTrainer(cfg, comp, device=dev)
+    state = trainer.init_state(seed=SEED)
+    batches = prefetch_to_device(iter(ATNetBatcher(
+        cfg, FileSource(lst, cfg), mean, comp.T, device=dev)), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, batches, 4, logger=_FetchAll())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    batch = batch_to_device(next(batches), dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ms = step_ms(lambda: trainer.train_step(state, batch, gen), 3, ZOO_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy = device_busy_share(lambda: trainer.fit(state, batches, 5))
+    loss = float(trainer.train_step(state, batch, gen)[1]["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"atnet loss {loss}")
+    log(f"atnet train: Config() width 1.0, {a.thinresnet_output_channels}/"
+        f"{a.encode_embedding_size}/{a.rnn_hidden_size}, batch "
+        f"{a.batch_size}, T 25, dropout {a.training.drop_rate}; fit 4 steps "
+        f"with the pipeline in {fit_s:.2f} s (first steps); {ms:.3f} ms/step "
+        f"median over {ZOO_STEPS} after 3 warm (CUDA events, one device "
+        f"batch); device idle share over 5 fit steps with the data pipeline "
+        f"{1 - busy:.3f}; peak memory {peak:.2f} GiB; loss {loss:.4g}; "
+        f"{card}")
+    return trainer, state, mean, comp
+
+
+def phase_vgnet(cfg_main, atnet, pcm, dev, card, work):
+    """20. VGNet at Config() (128², batch 4, T 15) on on-disk JPEG clips
+    with landmarks, ``alternative`` cut to 4 so that a D phase and a G
+    phase run: ms per step of each phase, peak memory; then
+    infer_atvgnet on the 55-frame clip (ATNet from phase 19)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.data.generators import (FileSource, VGNetBatcher,
+                                                   prefetch_to_device)
+    from voicepuppet_torch.pipeline import infer_drivers
+    from voicepuppet_torch.train.vgnet_trainer import VGNetTrainer
+    os.makedirs(work, exist_ok=True)
+    cfg = tcfg.Config()
+    v = cfg.vgnet
+    s = v.img_size
+    lst = write_landmark_image_dataset(work, np.random.RandomState(SEED + 4),
+                                       2, 30, s)
+    at_trainer, at_state, mean, comp = atnet
+    trainer = VGNetTrainer(cfg, alternative=VG_ALTERNATIVE, device=dev)
+    state = trainer.init_state(seed=SEED)
+    it = prefetch_to_device(iter(VGNetBatcher(
+        cfg, FileSource(lst, cfg, load_images=True), mean, comp.T)), dev)
+    batches = [next(it) for _ in range(2)]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    phase_ms = {}
+    for phase in ("D", "G"):
+        if trainer.is_d_phase(state.step) != (phase == "D"):
+            raise AssertionError(f"vgnet step {state.step} not a {phase} "
+                                 "step")
+        marks, metrics = [mark()], []
+        for i in range(VG_ALTERNATIVE):
+            metrics.append(trainer.train_step(state, batches[i % 2],
+                                              gen)[1])
+            marks.append(mark())
+        per = [elapsed_ms(a, b) for a, b in zip(marks, marks[1:])]
+        phase_ms[phase] = (median(per[1:]), {k: float(x) for k, x in
+                                             metrics[-1].items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(list(m.values())).all()
+               for _, m in phase_ms.values()):
+        raise AssertionError(f"vgnet losses {phase_ms}")
+    log(f"vgnet train: Config() {s}², batch {v.batch_size}, T 15, "
+        f"alternative {VG_ALTERNATIVE}: D step {phase_ms['D'][0]:.2f} ms, G "
+        f"step {phase_ms['G'][0]:.2f} ms (median of the last "
+        f"{VG_ALTERNATIVE - 1} of each phase, CUDA events); peak memory "
+        f"{peak:.2f} GiB; losses D {json.dumps(phase_ms['D'][1])} G "
+        f"{json.dumps({k: round(x, 4) for k, x in phase_ms['G'][1].items()})}"
+        f"; {card}")
+
+    img = np.random.RandomState(SEED + 5).rand(s, s, 3).astype(np.float32)
+    ang = np.linspace(0, 2 * np.pi, 68, endpoint=False)
+    lmk = np.stack([s / 2 + s * 0.3 * np.cos(ang),
+                    s / 2 + s * 0.38 * np.sin(ang)], -1).reshape(136)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        frames = infer_drivers.infer_atvgnet(
+            cfg_main, at_trainer, at_state, trainer, state, img, lmk, pcm,
+            mean, comp.T, out_dir=td)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if (frames.shape != (FRAMES, s, s, 3) or frames.dtype != np.uint8
+            or not frames.std(axis=0).max() > 0):
+        raise AssertionError(f"infer_atvgnet frames {frames.shape} "
+                             f"{frames.dtype}")
+    log(f"atvgnet infer_atvgnet: {FRAMES} frames -> {frames.shape} "
+        f"{frames.dtype} (not constant) in {wall:.3f} s; {card}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_card_vs_cpu(dev, card):
+    """21. One SGD step of each new trainer at the CPU tests' widths
+    (tests/_torch_port_cases.py: PixFlow ngf/ndf 8 at 64², batch 2; ATNet
+    64-wide at width-mult 0.25; VGNet at 32², batch 2, T 4; VGNet's a D
+    step and then a G step), on the card and on the CPU from the same
+    seeded weights and batch, dropout off on both (masks from a CUDA
+    generator cannot equal a CPU one's): losses and updates within the
+    bands above, the CPU's reading on the batch's rows swapped inside the
+    update band and the card's with TF32 on outside it.  VGNet's D scores
+    are printed: its losses have matched the CPU's to the bit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.audio.frontend import full_fp32_matmuls
+    from voicepuppet_torch.models import pixflow as pf
+    from voicepuppet_torch.models.atnet import synthetic_pca_component
+    from voicepuppet_torch.train.atnet_trainer import ATNetTrainer
+    from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
+    from voicepuppet_torch.train.pixflow_trainer import PixFlowTrainer
+    from voicepuppet_torch.train.vgnet_trainer import VGNetTrainer
+    sgd = lambda params: torch.optim.SGD(params, lr=GAN_LR)
+    cfg = tcfg.Config(
+        pixflow=tcfg.PixFlowConfig(ngf=8, ndf=8, img_size=64, batch_size=2),
+        atnet=tcfg.ATNetConfig(thinresnet_output_channels=64,
+                               encode_embedding_size=64, rnn_hidden_size=64,
+                               batch_size=2,
+                               training=dataclasses.replace(
+                                   tcfg.ATNetConfig().training,
+                                   drop_rate=0.0)),
+        vgnet=tcfg.VGNetConfig(img_size=32, batch_size=2))
+    rng = np.random.RandomState(7)
+    b, t = 2, 4
+    comp = synthetic_pca_component(6)
+    pf_batch = (rng.rand(b, 64, 64, 6).astype(np.float32),
+                rng.rand(b, 64, 64, 6).astype(np.float32),
+                (rng.rand(b, 64, 64, 3) > 0.5).astype(np.float32))
+    at_batch = (rng.randn(b, t, 136).astype(np.float32) * 0.1,
+                rng.rand(b, t, 1).astype(np.float32),
+                rng.randn(b, t, 3).astype(np.float32) * 0.1,
+                rng.randn(b, t * 5, 80).astype(np.float32),
+                rng.randn(b, 136).astype(np.float32) * 0.1,
+                np.array([t, 3], np.int32))
+    vg_batch = (rng.randn(b, t, 136).astype(np.float32) * 0.1,
+                rng.rand(b, t, 32, 32, 1).astype(np.float32),
+                rng.rand(b, t, 32, 32, 3).astype(np.float32),
+                rng.randn(b, 136).astype(np.float32) * 0.1,
+                rng.rand(b, 32, 32, 3).astype(np.float32),
+                np.array([t, 3], np.int32))
+    scores = {}
+
+    def updates(mods, before):
+        return {k: {n: (p.detach().cpu() - before[k][n]).numpy()
+                    for n, p in m.named_parameters()}
+                for k, m in mods.items()}
+
+    def snapshot(mods):
+        return {k: {n: p.detach().cpu().clone()
+                    for n, p in m.named_parameters()}
+                for k, m in mods.items()}
+
+    def pixflow(d, batch):
+        tr = PixFlowTrainer(cfg, device=d, g_tx=sgd, d_tx=sgd)
+        st = tr.init_state(seed=SEED)
+        for m in st.gen.modules():
+            if isinstance(m, pf.ResBlock):
+                m.drop_rate = 0.0
+        mods = {"gen": st.gen, "disc": st.disc}
+        before = snapshot(mods)
+        return lambda: (tr.train_step(st, batch)[1], updates(mods, before))
+
+    def atnet(d, batch):
+        tr = ATNetTrainer(cfg, comp, width_mult=0.25, tx=sgd, device=d)
+        st = tr.init_state(seed=SEED)
+        mods = {"model": st.model}
+        before = snapshot(mods)
+        return lambda: (tr.train_step(st, batch)[1], updates(mods, before))
+
+    def vgnet(d, batch):
+        tr = VGNetTrainer(cfg, alternative=1, g_tx=sgd, d_tx=sgd, device=d)
+        st = tr.init_state(seed=SEED)
+        st.disc.dis_rnn.drop_rate = 0.0
+        mods = {"gen": st.gen, "disc": st.disc}
+        before = snapshot(mods)
+
+        def run():
+            lmk, _, img, ex_lmk, ex_img, seq_len = batch_to_device(
+                batch, tr.device)
+            with torch.no_grad():
+                fake = st.gen(ex_img, lmk, ex_lmk, seq_len, train=True)[0]
+                scores[d] = [st.disc(x, ex_lmk, seq_len, train=True)[0]
+                             .flatten().cpu().numpy() for x in (img, fake)]
+            _, m1 = tr.train_step(st, batch)
+            _, m2 = tr.train_step(st, batch)
+            return {**m1, **m2}, updates(mods, before)
+        return run
+
+    def step(build, d, batch, tf32=False):
+        """Losses and SGD updates of ``build``'s step on ``d``; ``tf32``
+        turns TF32 on for cuBLAS and cuDNN for the step alone (the
+        trainer's constructor turns it off)."""
+        run = build(d, batch)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            return run()
+        finally:
+            full_fp32_matmuls()
+
+    failed = []
+    for name, build, batch in (("pixflow", pixflow, pf_batch),
+                               ("atnet", atnet, at_batch),
+                               ("vgnet", vgnet, vg_batch)):
+        swapped = tuple(np.ascontiguousarray(a[::-1]) for a in batch)
+        cpu = step(build, "cpu", batch)
+        if name == "vgnet":
+            cpu_scores = scores["cpu"]
+        got = step_offsets(step(build, dev, batch), cpu, ZOO_ZERO)
+        if name == "vgnet":
+            card_scores = scores[dev]
+        rows = step_offsets(step(build, "cpu", swapped), cpu, ZOO_ZERO)
+        tf32 = step_offsets(step(build, dev, batch, tf32=True), cpu,
+                            ZOO_ZERO)
+        parts = [k for k in got if k not in ("loss", "null")]
+        fmt = lambda r: json.dumps({k: float(f"{r[k]:.3g}") for k in parts})
+        log(f"zoo card vs cpu: {name} SGD step losses rel {got['loss']:.3g} "
+            f"(band {LOSS_REL}); updates / leaf max {fmt(got)} (band "
+            f"{ZOO_UPDATE}), zero-gradient leaves |g| {got['null']:.3g} "
+            f"(band {GAN_NULL}); the CPU against itself on the batch's rows "
+            f"swapped {fmt(rows)} (inside the band); the card with TF32 on: "
+            f"losses rel {tf32['loss']:.3g}, updates {fmt(tf32)} (outside "
+            f"it); {card}")
+        if name == "vgnet":
+            real, fake = (np.concatenate([card_scores[i], cpu_scores[i]])
+                          for i in (0, 1))
+            diff = max(np.abs(card_scores[i] - cpu_scores[i]).max()
+                       for i in (0, 1))
+            log(f"zoo card vs cpu: vgnet D scores before the steps, card | "
+                f"CPU: real {card_scores[0].tolist()} | "
+                f"{cpu_scores[0].tolist()}, fake {card_scores[1].tolist()} "
+                f"| {cpu_scores[1].tolist()}; max |diff| {diff:.3g}")
+            if not (0 < real.min() and real.max() < 1 and 0 < fake.min()
+                    and fake.max() < 1):
+                failed.append(f"{name} D scores saturated")
+        if not (got["loss"] < LOSS_REL and got["null"] < GAN_NULL
+                and all(got[k] < ZOO_UPDATE for k in parts)):
+            failed.append(f"{name} card vs CPU outside its bands")
+        if not all(rows[k] < ZOO_UPDATE for k in parts):
+            failed.append(f"{name}: the CPU's own sum-order noise falls "
+                          "outside the update band")
+        if not max(tf32[k] for k in parts) >= ZOO_UPDATE:
+            failed.append(f"{name}: TF32 on the card falls inside the "
+                          "update band")
+    if failed:
+        raise AssertionError(f"zoo card vs CPU: {failed}")
 
 def main():
     import numpy as np
@@ -1911,6 +2435,24 @@ def main():
                                px_run["ckpt_dir"], panel, pcm, identity,
                                counts, reset_counts, n_chunks, card)
 
+    # ---- 18-21. PixFlow, ATNet, VGNet -------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        pf_run = phase_pixflow(cfg, synth, identity, panel, pcm, dev, counts,
+                               reset_counts, card,
+                               os.path.join(work, "pixflow"))
+        log(f"phase 18 (pixflow) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        atnet = phase_atnet(dev, card, os.path.join(work, "atnet"))
+        log(f"phase 19 (atnet) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_vgnet(cfg, atnet, pcm, dev, card, os.path.join(work, "vgnet"))
+        log(f"phase 20 (vgnet, atvgnet) {time.perf_counter() - t0:.1f} s")
+        del atnet
+        t0 = time.perf_counter()
+        phase_zoo_card_vs_cpu(dev, card)
+        log(f"phase 21 (zoo card vs cpu) {time.perf_counter() - t0:.1f} s")
+
     pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{
         "name": name,
@@ -1926,8 +2468,8 @@ def main():
         "library_ms": None,
     } for name, replaces, n, err, ms, pms, bms, bby in (
         ("raster_flat", f"{pallas}:126",
-         launches + bfm_run["grid_launches"], max_abs_err, k_ms, p_ms,
-         bound, bound_by),
+         launches + bfm_run["grid_launches"] + pf_run["launches"],
+         max(max_abs_err, pf_run["err"]), k_ms, p_ms, bound, bound_by),
         ("raster_grouped", f"{pallas}:337", k4_launches, k4_err, k4_ms,
          p4g_ms, bound, bound_by),
         ("raster_interp", f"{pallas}:695", tex_launched["raster_interp"],

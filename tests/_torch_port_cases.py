@@ -9,7 +9,9 @@ import numpy as np
 
 
 def jax_cfg():
-    """ngf 8, 256² PixRefer; width-mult 0.25, 64-wide BFMNet."""
+    """ngf 8, 256² PixRefer; width-mult 0.25, 64-wide BFMNet; PixFlow ngf
+    and ndf 8 at 64², batch 2; a 64-wide ATNet (its trunk's width-mult is
+    the trainer's argument); VGNet at 32², batch 2."""
     from voicepuppet_tpu.config import Config
     base = Config()
     return dataclasses.replace(
@@ -19,7 +21,13 @@ def jax_cfg():
                                    encode_embedding_size=64,
                                    rnn_hidden_size=64),
         pixrefer=dataclasses.replace(base.pixrefer, ngf=8, ndf=8,
-                                     img_size=256))
+                                     img_size=256),
+        pixflow=dataclasses.replace(base.pixflow, ngf=8, ndf=8, img_size=64,
+                                    batch_size=2),
+        atnet=dataclasses.replace(base.atnet, thinresnet_output_channels=64,
+                                  encode_embedding_size=64,
+                                  rnn_hidden_size=64, batch_size=2),
+        vgnet=dataclasses.replace(base.vgnet, img_size=32, batch_size=2))
 
 
 def port_cfg(jcfg=None):
@@ -43,7 +51,11 @@ def port_cfg(jcfg=None):
         training=tc.TrainingConfig(**dataclasses.asdict(jcfg.training)),
         dataset=tc.DatasetConfig(**dataclasses.asdict(jcfg.dataset)),
         bfmnet=own(tc.BFMNetConfig, jcfg.bfmnet),
-        pixrefer=own(tc.PixReferConfig, jcfg.pixrefer))
+        pixrefer=own(tc.PixReferConfig, jcfg.pixrefer),
+        pixflow=own(tc.PixFlowConfig, jcfg.pixflow),
+        atnet=own(tc.ATNetConfig, jcfg.atnet),
+        vgnet=own(tc.VGNetConfig, jcfg.vgnet),
+        mesh=tc.MeshConfig(**dataclasses.asdict(jcfg.mesh)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -167,3 +167,175 @@ def test_infer_bfmnet_end_to_end(tmp_path):
         jnp.asarray([t], jnp.int32), train=False, mask_time=True))
     assert got.shape == want.shape == (1, t, 64)
     np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+# ---- PixFlow and ATVGNet drivers ----------------------------------------------
+
+def _panels(tmp_path, rng, n, s):
+    from PIL import Image
+    paths = []
+    for i in range(n):
+        img = (rng.rand(s, 3 * s, 3) * 255).astype(np.uint8)
+        img[:, 2 * s:] = 0
+        img[s // 8:-s // 8, 2 * s + s // 4:3 * s - s // 4] = 255
+        p = tmp_path / f"{i}.jpg"
+        Image.fromarray(img).save(p)
+        paths.append(str(p))
+    return paths
+
+
+def _pixflow_pair(jcfg, seed=4):
+    """The JAX trainer's ``infer`` on a params tree, and the port's
+    trainer with the same parameters."""
+    import types
+    from voicepuppet_tpu.models import pixflow as jpf
+    from voicepuppet_tpu.train.pixflow_trainer import PixFlowTrainer as JPF
+    from voicepuppet_torch import weights
+    from voicepuppet_torch.train.pixflow_trainer import PixFlowTrainer
+    from _torch_port_cases import numpy_tree
+    s = jcfg.pixflow.img_size
+    x6 = np.zeros((1, s, s, 6), np.float32)
+    g = numpy_tree(jpf.PixFlowNet(jcfg.pixflow), x6, x6, train=False,
+                   seed=seed)["params"]
+    jt = types.SimpleNamespace(gen_eval=jpf.PixFlowNet(jcfg.pixflow),
+                               _infer_step=None)
+    jt.infer = types.MethodType(JPF.infer, jt)
+    tr = PixFlowTrainer(port_cfg(jcfg), device="cpu")
+    state = tr.init_state()
+    weights.load_flax_(state.gen, g)
+    return (jt, types.SimpleNamespace(g_params=g)), (tr, state)
+
+
+def test_infer_pixflow_matches_jax(tmp_path):
+    """``infer_pixflow`` on a 3-frame panel folder (64², ngf 8), the same
+    G parameters on both sides: frames within 1e-4 (float32 sums in other
+    orders through 13 batch-moment BNs; measured 2.7e-5 on 2% of values,
+    the rest within 1e-5)."""
+    jcfg = jax_cfg()
+    s = jcfg.pixflow.img_size
+    paths = _panels(tmp_path, np.random.RandomState(5), 3, s)
+    (jt, jstate), (tr, state) = _pixflow_pair(jcfg)
+    want = jdrv.infer_pixflow(jcfg, jt, jstate, paths, str(tmp_path / "j"))
+    got = tdrv.infer_pixflow(port_cfg(jcfg), tr, state, paths,
+                             str(tmp_path / "t"))
+    assert got.shape == want.shape == (3, s, s, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == [
+        "0.jpg", "1.jpg", "2.jpg"]
+
+
+def test_infer_bfm_pixflow_matches_jax(tmp_path):
+    """audio -> coefficients -> faces rendered at PixFlow's size with no
+    yaw (K1's plain version here, ``ceil(T/8)`` chunks) -> PixFlowNet per
+    frame.  Both drivers get the port synthesizer's expressions (BFMNet's
+    parity is held in test_infer_bfmnet_end_to_end and
+    tests/test_torch_synthesize.py), so this holds the splice, the render
+    and the generator loop: the rendered faces equal the JAX raster's (the
+    64² canvas keeps every triangle inside the JAX CPU raster's 6 px
+    window, asserted), the frames within 1e-4 (as infer_pixflow's)."""
+    import types
+    import jax.numpy as jnp
+    from voicepuppet_torch.pipeline import synthesize as tsyn
+    jcfg = jax_cfg()
+    cfg = port_cfg(jcfg)
+    s = cfg.pixflow.img_size
+    model = jbfm.synthetic_bfm(num_theta=24, num_phi=24, seed=1)
+    synth, ident = tsyn.SynthesisAssets.demo(cfg, seed=3, face_model=model,
+                                             gan_dtype=torch.float32,
+                                             device="cpu")
+    n = 9000
+    pcm = (0.3 * np.sin(2 * np.pi * 200 * np.arange(n) / 16000)
+           + 0.05 * np.random.RandomState(2).randn(n)).astype(np.float32)
+    exp = synth.predict_expressions(pcm)
+    jsynth = types.SimpleNamespace(
+        predict_expressions=lambda _pcm: jnp.asarray(exp.numpy()),
+        face_model=model)
+    panel = np.random.RandomState(6).rand(s, 3 * s, 3).astype(np.float32)
+    (jt, jstate), (tr, state) = _pixflow_pair(jcfg, seed=7)
+    want = jdrv.infer_bfm_pixflow(jcfg, jsynth, jt, jstate, ident, panel,
+                                  pcm, str(tmp_path / "j"))
+    got = tdrv.infer_bfm_pixflow(cfg, synth, tr, state, ident, panel, pcm,
+                                 str(tmp_path / "t"))
+    t = exp.shape[1]
+    assert got.shape == want.shape == (t, s, s, 3) and t > 8
+    coeff = tsyn.splice_coeff_sequence(ident.bfmcoeff, exp).numpy()
+    verts, tri = _screen_vertices(model, coeff, s)
+    corners = verts[:, tri, :2]
+    extent = (np.floor(corners.max(2)) - np.ceil(corners.min(2)) + 1).max()
+    assert extent <= max(6, int(np.ceil(7 * s / 224)))
+    np.testing.assert_array_equal(
+        tdrv.render_coeff_video_frames(coeff, model, s, yaw_shift=0.0,
+                                       device="cpu"),
+        jdrv.render_coeff_video_frames(coeff, model, img_size=s,
+                                       yaw_shift=0.0))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert len(list((tmp_path / "t").iterdir())) == t
+
+
+def test_infer_atvgnet_matches_jax(tmp_path):
+    """audio -> the log-mel -> ATNet landmarks -> the VGNet generator in
+    inference mode -> uint8 frames and the video (a PNG sequence without
+    ffmpeg).  ATNet 64-wide at width-mult 0.25, VGNet at 32²; the same
+    parameters on both sides.  Each side computes the mel on its own
+    frontend (float32, ~1e-5 apart), so the frames agree within one code
+    (float -> uint8 truncation) on under 1% of values (measured: 1 code
+    on 0.014%)."""
+    import types
+    from voicepuppet_tpu.models import atnet as jat
+    from voicepuppet_tpu.models import vgnet as jvg
+    from voicepuppet_tpu.train.atnet_trainer import ATNetTrainer as JAT
+    from voicepuppet_torch import weights
+    from voicepuppet_torch.train.atnet_trainer import ATNetTrainer
+    from voicepuppet_torch.train.vgnet_trainer import VGNetTrainer
+    from _torch_port_cases import numpy_tree
+    jcfg = jax_cfg()
+    cfg = port_cfg(jcfg)
+    s, width = cfg.vgnet.img_size, 0.25
+    comp = jat.synthetic_pca_component(6)
+    rng = np.random.RandomState(8)
+    t0 = 6
+    a_tree = numpy_tree(jat.ATNet(jcfg.atnet, comp, width_mult=width),
+                        np.zeros((1, t0, 1)), np.zeros((1, t0, 3)),
+                        np.zeros((1, t0 * 5, 80)), np.zeros((1, 136)),
+                        np.full((1,), t0, np.int32), train=False, seed=9)
+    g_tree = numpy_tree(jvg.VGNetGenerator(jcfg.vgnet),
+                        np.zeros((1, s, s, 3)), np.zeros((1, t0, 136)),
+                        np.zeros((1, 136)), np.full((1,), t0, np.int32),
+                        train=False, seed=10)
+    jat_tr = types.SimpleNamespace(eval_model=jat.ATNet(
+        jcfg.atnet, comp, width_mult=width))
+    jat_tr.infer = types.MethodType(JAT.infer, jat_tr)
+    jvg_tr = types.SimpleNamespace(gen_eval=jvg.VGNetGenerator(jcfg.vgnet))
+    img = rng.rand(s, s, 3).astype(np.float32)
+    lmk = rng.rand(136).astype(np.float32) * s * 0.6 + s * 0.2
+    mean = np.zeros((136,), np.float32)
+    n = 4000
+    pcm = (0.3 * np.sin(2 * np.pi * 180 * np.arange(n) / 16000)).astype(
+        np.float32)
+    want = jdrv.infer_atvgnet(
+        jcfg, jat_tr, types.SimpleNamespace(
+            params=a_tree["params"], batch_stats=a_tree["batch_stats"]),
+        jvg_tr, types.SimpleNamespace(
+            g_params=g_tree["params"],
+            batch_stats={"g": g_tree["batch_stats"]}),
+        img, lmk, pcm, mean, comp.T, out_dir=str(tmp_path / "j"))
+    at = ATNetTrainer(cfg, comp, width_mult=width, device="cpu")
+    a_state = at.init_state()
+    weights.load_flax_(a_state.model, a_tree)
+    vt = VGNetTrainer(cfg, device="cpu")
+    v_state = vt.init_state()
+    weights.load_flax_(v_state.gen, g_tree)
+    got = tdrv.infer_atvgnet(cfg, at, a_state, vt, v_state, img, lmk, pcm,
+                             mean, comp.T, out_dir=str(tmp_path / "t"))
+    t = int(1 + n / cfg.frame_wav_scale)
+    assert got.shape == want.shape == (t, s, s, 3)
+    assert got.dtype == np.uint8
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.01, (
+        diff.max(), (diff > 0).mean())
+    assert got.std(axis=0).max() > 0
+    import shutil
+    if shutil.which("ffmpeg") is None:
+        assert len(list((tmp_path / "t" / "atvg_frames").glob("*.png"))) == t
+    else:
+        assert (tmp_path / "t" / "atvg.mp4").exists()

@@ -199,3 +199,126 @@ def test_infer_pixrefer_matches_jax_driver(tmp_path):
     assert got.shape == want.shape == (3, PR_S, PR_S, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert sorted(os.listdir(tmp_path / "t")) == ["0.jpg", "1.jpg", "2.jpg"]
+
+
+# ---- the PixFlow, ATNet and VGNet CLIs -------------------------------------------
+
+ZOO_S = 32      # VGNet's image size here; PixFlow's panels are 64²
+
+
+@pytest.fixture(scope="module")
+def zoo_trained(dataset, tmp_path_factory):
+    """The three CLIs, 2 steps each on the CPU: PixFlow in bfloat16 on
+    64² panels, ATNet on the coefficient/landmark/wav clips, VGNet on
+    15-frame JPEG clips with landmarks."""
+    from voicepuppet_torch.train import (atnet_trainer, pixflow_trainer,
+                                         vgnet_trainer)
+    tmp = tmp_path_factory.mktemp("zoo")
+    rng = np.random.RandomState(9)
+    lines = {"pf": [], "vg": []}
+    for k in range(2):
+        d = tmp / f"pf{k}"
+        d.mkdir()
+        for i in range(3):
+            img = (rng.rand(64, 192, 3) * 255).astype(np.uint8)
+            img[:, 128:] = 0
+            img[8:-8, 144:176] = 255
+            Image.fromarray(img).save(d / f"{i}.jpg")
+        lines["pf"].append(f"{d}|3")
+        d = tmp / f"vg{k}"
+        d.mkdir()
+        ang = np.linspace(0, 2 * np.pi, 68, endpoint=False)
+        ring = np.stack([112 + 70 * np.cos(ang), 112 + 85 * np.sin(ang)], -1)
+        np.savetxt(d / "landmark.txt", (ring[None] + rng.randn(15, 68, 2))
+                   .reshape(15, 136), fmt="%.3f", delimiter=",")
+        for i in range(15):
+            Image.fromarray((rng.rand(ZOO_S, ZOO_S, 3) * 255).astype(
+                np.uint8)).save(d / f"{i}.jpg")
+        lines["vg"].append(f"{d}|15")
+    for name, ls in lines.items():
+        (tmp / f"{name}.txt").write_text("\n".join(ls) + "\n")
+    cfg = tmp / "zoo.yml"
+    cfg.write_text(f"""
+default:
+  model_dir: {tmp}/allmodels
+  pixflow:
+    batch_size: 2
+    ngf: 4
+    ndf: 4
+    img_size: 64
+    training: {{save_interval: 2}}
+  atnet:
+    batch_size: 2
+    thinresnet_output_channels: 32
+    encode_embedding_size: 32
+    rnn_hidden_size: 32
+    training: {{save_interval: 1}}
+  vgnet:
+    batch_size: 2
+    img_size: {ZOO_S}
+    training: {{save_interval: 1}}
+""")
+    import yaml
+    doc = yaml.safe_load(cfg.read_text())
+    for name, lst in (("pixflow", tmp / "pf.txt"),
+                      ("atnet", dataset / "seq.txt"),
+                      ("vgnet", tmp / "vg.txt")):
+        doc["default"]["train_dataset_path"] = str(lst)
+        path = tmp / f"{name}.yml"
+        path.write_text(yaml.safe_dump(doc))
+    pixflow_trainer.main(["--config_path", str(tmp / "pixflow.yml"),
+                          "--steps", "2", "--dtype", "bfloat16", "--device",
+                          "cpu", "--ckpt_dir", str(tmp / "cf"), "--log_dir",
+                          str(tmp / "lf")])
+    atnet_trainer.main(["--config_path", str(tmp / "atnet.yml"), "--steps",
+                        "2", "--device", "cpu", "--ckpt_dir",
+                        str(tmp / "ca"), "--log_dir", str(tmp / "la")])
+    vgnet_trainer.main(["--config_path", str(tmp / "vgnet.yml"), "--steps",
+                        "2", "--alternative", "1", "--device", "cpu",
+                        "--ckpt_dir", str(tmp / "cv"), "--log_dir",
+                        str(tmp / "lv")])
+    return tmp
+
+
+def _rows(path):
+    return [json.loads(x) for x in open(path)]
+
+
+def test_pixflow_cli_bf16_writes_metrics_and_checkpoints(zoo_trained):
+    """``--dtype bfloat16`` trains with float32 parameters; the
+    checkpoint restores into a fresh trainer's state equal."""
+    from voicepuppet_torch.train.pixflow_trainer import PixFlowTrainer
+    tmp = zoo_trained
+    rows = _rows(tmp / "lf" / "pixflow_metrics.jsonl")
+    assert [r["step"] for r in rows] == [2, 4]
+    assert set(rows[0]) >= {"discrim_loss", "gen_loss", "gen_loss_GAN",
+                            "gen_loss_L1"}
+    assert all(np.isfinite(r["gen_loss"]) for r in rows)
+    ckpt = CheckpointManager(str(tmp / "cf"))
+    assert ckpt.steps() == [2, 4]
+    cfg = tconfig.load_config(str(tmp / "pixflow.yml"))
+    tr = PixFlowTrainer(cfg, train_dtype=torch.bfloat16, device="cpu")
+    state = ckpt.restore(tr.init_state(seed=5))
+    assert state.step == 4
+    blob = ckpt.load()
+    assert all(torch.equal(v, blob["gen"][k])
+               for k, v in state.gen.state_dict().items())
+    assert all(v.dtype == torch.float32 for v in blob["gen"].values())
+
+
+def test_atnet_cli_writes_metrics_and_checkpoints(zoo_trained):
+    tmp = zoo_trained
+    rows = _rows(tmp / "la" / "atnet_metrics.jsonl")
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert CheckpointManager(str(tmp / "ca")).steps() == [1, 2]
+
+
+def test_vgnet_cli_alternates_phases(zoo_trained):
+    """``--alternative 1``: a D step, then a G step."""
+    tmp = zoo_trained
+    rows = _rows(tmp / "lv" / "vgnet_metrics.jsonl")
+    assert [r["step"] for r in rows] == [1, 2]
+    assert "discriminator_loss" in rows[0] and "pix_loss" in rows[1]
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    assert CheckpointManager(str(tmp / "cv")).steps() == [1, 2]

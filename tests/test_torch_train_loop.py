@@ -35,6 +35,7 @@ from voicepuppet_torch.face3d import bfm as tbfm
 from voicepuppet_torch.train import optim as toptim
 from voicepuppet_torch.train.bfmnet_trainer import BFMNetTrainer
 from voicepuppet_torch.train.checkpoint import CheckpointManager
+from voicepuppet_torch.train.loop import StepLoop
 from voicepuppet_torch.train.metrics import MetricsLogger, ProfilerHook
 from voicepuppet_torch.train.pixrefer_trainer import _hit_interval
 from voicepuppet_torch.utils import tb_writer as ttb
@@ -448,6 +449,60 @@ def test_checkpoint_cadence_and_max_to_keep(small, tmp_path):
     assert state.step == 13
     assert saved == [3, 6, 9, 12]
     assert ckpt.steps() == [9, 12]
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_step_loop_rows_cadence_and_dropout_stream(stride):
+    """``StepLoop.fit`` (the PixFlow, ATNet and VGNet loop): one metrics
+    row per step at the step reached, a save at each exact multiple of the
+    interval (the D+G trainers stride by 2), the profiler stepped before
+    each step and closed, and one dropout generator seeded with 0 carried
+    across the steps."""
+
+    class Trainer(StepLoop):
+        device = torch.device("cpu")
+
+        def train_step(self, state, batch, generator):
+            state.draws.append(float(torch.rand(1, generator=generator)))
+            state.step += stride
+            return state, {"loss": torch.tensor(float(batch))}
+
+    class State:
+        step, draws = 0, []
+
+    class Ckpt:
+        save_interval, saved = 4, []
+
+        def save(self, step, state):
+            self.saved.append(step)
+
+    class Rows:
+        def __init__(self):
+            self.rows = []
+
+        def log(self, step, **kw):
+            self.rows.append((step, float(kw["loss"])))
+
+    class Profiler:
+        seen, closed = [], False
+
+        def step(self, step):
+            self.seen.append(step)
+
+        def close(self):
+            self.closed = True
+
+    state, rows, ckpt, prof = State(), Rows(), Ckpt(), Profiler()
+    state.draws = []
+    out = Trainer().fit(state, iter(range(10, 16)), 6, rows, ckpt, prof)
+    assert out.step == 6 * stride
+    assert rows.rows == [(stride * (i + 1), 10.0 + i) for i in range(6)]
+    assert ckpt.saved == [s for s in range(stride, 6 * stride + 1, stride)
+                          if s % 4 == 0]
+    assert prof.seen == [stride * i for i in range(6)] and prof.closed
+    g = torch.Generator().manual_seed(0)
+    assert state.draws == [float(torch.rand(1, generator=g))
+                           for _ in range(6)]
 
 
 @pytest.mark.parametrize("stride,kk,interval", [

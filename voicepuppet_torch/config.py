@@ -1,9 +1,9 @@
 """Configuration for serving and training.
 
-Own copy of the serving and training subset of
-``voicepuppet_tpu/config.py``: the mel frontend, the dataset lists, the
-BFMNet and PixRefer hyper-parameters with their training knobs, and the
-top-level fields the pipelines read.  The YAML loader accepts the
+Own copy of ``voicepuppet_tpu/config.py``: the mel frontend, the dataset
+lists, the hyper-parameters of the five models (BFMNet, PixRefer,
+PixFlow, ATNet, VGNet) with their training knobs, the device-mesh layout
+and the top-level fields the pipelines read.  The YAML loader accepts the
 reference ``config/params.yml`` schema and the nested native schema; keys
 this subset does not know are ignored, as the reference loader ignores
 extras.
@@ -81,6 +81,46 @@ class PixReferConfig:
 
 
 @dataclass(frozen=True)
+class PixFlowConfig:
+    """PixFlowNet hyper-parameters (ref: pixflow.py:24-40)."""
+
+    ngf: int = 64
+    ndf: int = 48
+    l1_weight: float = 500.0
+    gan_weight: float = 1.0
+    img_size: int = 512
+    batch_size: int = 3          # ref: generator/generator.py:819
+    crop_ratio: float = 0.9
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        learning_rate=3e-4, beta1=0.5, decay_rate=0.999, max_to_keep=2))
+
+
+@dataclass(frozen=True)
+class ATNetConfig:
+    """ATNet (legacy) hyper-parameters (ref: atvgnet/atnet.py:150-190)."""
+
+    thinresnet_output_channels: int = 256
+    encode_embedding_size: int = 128
+    rnn_hidden_size: int = 128
+    landmark_size: int = 136
+    pca_components: int = 6
+    batch_size: int = 16         # ref: train_atnet.py:41
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        learning_rate=1e-4, decay_steps=10000, decay_rate=1.0))
+
+
+@dataclass(frozen=True)
+class VGNetConfig:
+    """VGNet (legacy) hyper-parameters (ref: atvgnet/vgnet.py)."""
+
+    img_size: int = 128
+    landmark_size: int = 136
+    batch_size: int = 4          # ref: train_vgnet.py:41
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        learning_rate=1e-4))
+
+
+@dataclass(frozen=True)
 class DatasetConfig:
     """Dataset list / sample-file naming (ref: config/params.yml:1-14)."""
 
@@ -99,6 +139,18 @@ class DatasetConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout of the reference's multi-device training.  The
+    port trains on one device; the fields are kept so that a profile
+    naming them loads unchanged."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = 0   # 0 = all devices on the data axis
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class Config:
     model_dir: str = "./allmodels"
     frame_rate: int = 25
@@ -107,6 +159,10 @@ class Config:
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     bfmnet: BFMNetConfig = field(default_factory=BFMNetConfig)
     pixrefer: PixReferConfig = field(default_factory=PixReferConfig)
+    pixflow: PixFlowConfig = field(default_factory=PixFlowConfig)
+    atnet: ATNetConfig = field(default_factory=ATNetConfig)
+    vgnet: VGNetConfig = field(default_factory=VGNetConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def __post_init__(self):
         if self.frame_wav_scale * self.frame_rate != self.mel.sample_rate:
@@ -154,7 +210,7 @@ def _update_dataclass(obj, overrides: Dict[str, Any]):
     return dataclasses.replace(obj, **kwargs)
 
 
-_MODEL_KEYS = ("bfmnet", "pixrefer")
+_MODEL_KEYS = ("bfmnet", "pixrefer", "pixflow", "atnet", "vgnet")
 
 
 def _distribute_training(out: Dict[str, Any], training: Dict[str, Any]):
@@ -189,7 +245,7 @@ def _flatten_reference_yaml(raw: Dict[str, Any]) -> Dict[str, Any]:
         dataset.update(raw["sample_file"])
     if dataset:
         out["dataset"] = dataset
-    for key in ("dataset",) + _MODEL_KEYS:
+    for key in ("dataset",) + _MODEL_KEYS + ("mesh",):
         if key in raw:
             out.setdefault(key, {}).update(raw[key])
     if isinstance(raw.get("training"), dict):

@@ -21,7 +21,6 @@ vertex-space sequence loss (:169-211), folded through the mouth-weighted
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
@@ -30,9 +29,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from voicepuppet_torch.config import BFMNetConfig
-from voicepuppet_torch.models.layers import (MaskedGRU, MfccNet, TFBatchNorm,
-                                             dropout, l2_regularization,
-                                             leaky_relu, max_pool_same)
+from voicepuppet_torch.models.layers import (MaskedGRU, MfccNet,
+                                             dropout, init_flax_like_,
+                                             l2_regularization, leaky_relu,
+                                             max_pool_same)
 
 
 class MfccEncoder(nn.Module):
@@ -147,36 +147,7 @@ def init_bfmnet_(model: BFMNet, generator: torch.Generator) -> BFMNet:
     """Fresh weights drawn as the JAX init draws them (its distributions,
     not its bits): xavier-uniform conv and dense kernels, orthogonal GRU
     kernels with gate bias 1.0, zero biases, BN moments (0, 1)."""
-    with torch.no_grad():
-        for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                w = mod.weight
-                if ".ScanTFGRUCell_" in name:
-                    _orthogonal_(w, generator)
-                else:
-                    fan_out = w.shape[0] * w[0, 0].numel()
-                    fan_in = w[0].numel()
-                    a = math.sqrt(6.0 / (fan_in + fan_out))
-                    w.uniform_(-a, a, generator=generator)
-                if mod.bias is not None:
-                    gate = name.endswith("Dense_0") and ".ScanTFGRUCell_" in name
-                    mod.bias.fill_(1.0 if gate else 0.0)
-            elif isinstance(mod, TFBatchNorm):
-                mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
-    return model
-
-
-def _orthogonal_(w: torch.Tensor, generator: torch.Generator):
-    """flax ``orthogonal()`` on the [in, out] kernel, stored [out, in]."""
-    rows, cols = w.shape[1], w.shape[0]
-    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
-    q, r = torch.linalg.qr(a)
-    q = q * torch.sign(torch.diagonal(r))
-    if rows < cols:
-        q = q.T
-    w.copy_(q.T)
+    return init_flax_like_(model, generator)
 
 
 class BFMNetLoss:

@@ -62,6 +62,46 @@ class SameConv2d(nn.Conv2d):
                                   else self.bias.to(x.dtype))
 
 
+def conv_transpose_same_pads(kernel: int, stride: int) -> Tuple[int, int]:
+    """``lax.conv_transpose(padding="SAME")``'s (before, after) padding of
+    the stride-dilated input (flax ``ConvTranspose``): (2, 2) at k=4 s=2,
+    (4, 3) at k=7 s=2, (2, 1) at k=3 s=2."""
+    pad_len = kernel + stride - 2
+    before = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    return before, pad_len - before
+
+
+class SameConvTranspose2d(nn.ConvTranspose2d):
+    """flax ``ConvTranspose(padding="SAME")``: output ``stride * n``.
+    torch pads the dilated input by ``k - 1 - padding`` on both sides (and
+    ``output_padding`` more after), so an uneven split such as k=7's (4, 3)
+    has no ``padding``/``output_padding`` of its own: ``padding = k - 1 -
+    before`` pads ``before`` on both sides and the extra ``before -
+    after`` trailing rows and columns are cropped.  (``padding=3,
+    output_padding=1`` has the right size at k=7 but pads (3, 4), one
+    pixel off.)  The weight is the flipped flax kernel (``weights.py``);
+    it and the bias are cast to the input's dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
+                 bias: bool = True):
+        before, after = conv_transpose_same_pads(kernel, stride)
+        if before < after:
+            raise ValueError(f"k={kernel} s={stride}: 'SAME' pads "
+                             f"({before}, {after}), not supported")
+        super().__init__(in_ch, out_ch, kernel, stride,
+                         padding=kernel - 1 - before, bias=bias)
+        self.crop = before - after
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype),
+                               None if self.bias is None
+                               else self.bias.to(x.dtype), self.stride,
+                               self.padding)
+        if self.crop:
+            y = y[..., :y.shape[-2] - self.crop, :y.shape[-1] - self.crop]
+        return y
+
+
 def max_pool_same(x: torch.Tensor, window: Tuple[int, int],
                   stride: Tuple[int, int]) -> torch.Tensor:
     """``tf.layers.max_pooling2d(padding='same')`` (-inf padding)."""
@@ -197,7 +237,12 @@ class MfccNet(nn.Module):
     after every stage (and pools see ``-inf`` there), so a time-padded run
     equals the exact-length run on the valid rows.  ``dtype`` is the
     compute dtype of the whole stack (JAX ``MfccNet.dtype``): parameters
-    and BN moments stay float32, the output is float32."""
+    and BN moments stay float32, the output is float32.
+
+    ``activation`` is the blocks' activation: relu6 for BFMNet, elu with
+    :data:`MOBILENET_WIDTHS` for ATNet.  The stem and head conv use plain
+    relu when it is relu6 (bfmnet/tinynet.py:26) and the activation itself
+    otherwise (atvgnet/tinynet.py:26; JAX ``layers.py:192-196``)."""
 
     # (widths index, expansion) of blocks block1_0 .. block7_0, and the
     # blocks a [2,2]/[1,2] max pool follows (layers.py:207-227)
@@ -209,18 +254,22 @@ class MfccNet(nn.Module):
     def __init__(self, output_channels: int = 256, width_mult: float = 1.0,
                  widths: Tuple[int, ...] = (32, 64, 64, 128, 192, 256, 256,
                                             256),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 activation: Callable = F.relu6):
         super().__init__()
         self.dtype = dtype
+        stem_act = F.relu if activation is F.relu6 else activation
         w = lambda f: max(8, int(f * width_mult))
         ch = w(widths[0])
-        self.ConvBN_0 = ConvBN(1, ch, (9, 5), (1, 2))
+        self.ConvBN_0 = ConvBN(1, ch, (9, 5), (1, 2), stem_act)
         for i, (wi, e) in enumerate(self._BLOCKS):
             out = w(widths[wi])
             self.add_module(f"InvertedResidual_{i}",
-                            InvertedResidual(ch, out, e))
+                            InvertedResidual(ch, out, e,
+                                             activation=activation))
             ch = out
-        self.ConvBN_1 = ConvBN(ch, output_channels, (1, 1), (1, 1))
+        self.ConvBN_1 = ConvBN(ch, output_channels, (1, 1), (1, 1),
+                               stem_act)
 
     def forward(self, x, valid_rows: Optional[torch.Tensor] = None,
                 train: bool = False):
@@ -243,6 +292,46 @@ class MfccNet(nn.Module):
             if i in self._POOL_AFTER:
                 x = m0(max_pool_same(neg(x), (2, 2), (1, 2)))
         return m0(self.ConvBN_1(x, train)).float()
+
+
+# the atvgnet width schedule (true MobileNetV2; atvgnet/tinynet.py:172-204)
+MOBILENET_WIDTHS = (32, 16, 24, 32, 64, 96, 160, 320)
+
+
+class ThinNet(nn.Module):
+    """Image backbone with MobileNetV2 widths (ref: atvgnet/tinynet.py:
+    218-275; JAX ``layers.py:238-273``): a 3x3 stem at ``stem_stride``
+    (VGNet passes (1, 1)), 17 inverted residuals, a 1x1 head conv; the
+    stem and head use plain relu only when ``activation`` is relu6."""
+
+    # (widths index, expansion) of the 17 blocks (layers.py:264-269)
+    _BLOCKS = ((1, 1),) + tuple((wi, 6) for wi, reps in (
+        (2, 2), (3, 3), (4, 4), (5, 3), (6, 3)) for _ in range(reps)) + (
+            (7, 6),)
+
+    def __init__(self, in_ch: int, output_channels: int = 256,
+                 activation: Callable = F.elu, width_mult: float = 1.0,
+                 stem_stride: Tuple[int, int] = (2, 2),
+                 widths: Tuple[int, ...] = MOBILENET_WIDTHS):
+        super().__init__()
+        stem_act = F.relu if activation is F.relu6 else activation
+        w = lambda f: max(8, int(f * width_mult))
+        ch = w(widths[0])
+        self.ConvBN_0 = ConvBN(in_ch, ch, (3, 3), stem_stride, stem_act)
+        for i, (wi, e) in enumerate(self._BLOCKS):
+            out = w(widths[wi])
+            self.add_module(f"InvertedResidual_{i}",
+                            InvertedResidual(ch, out, e,
+                                             activation=activation))
+            ch = out
+        self.ConvBN_1 = ConvBN(ch, output_channels, (1, 1), (1, 1),
+                               stem_act)
+
+    def forward(self, x, train: bool = False):
+        x = self.ConvBN_0(x, train)
+        for i in range(len(self._BLOCKS)):
+            x = getattr(self, f"InvertedResidual_{i}")(x, None, train)
+        return self.ConvBN_1(x, train)
 
 
 class TFGRUCell(nn.Module):
@@ -326,3 +415,45 @@ def l2_regularization(module: nn.Module, scale: float = 1e-4
     if not leaves:
         return torch.zeros((), device=next(module.parameters()).device)
     return scale * 0.5 * sum(torch.sum(torch.square(w)) for w in leaves)
+
+
+def orthogonal_(w: torch.Tensor, generator: torch.Generator):
+    """flax ``orthogonal()`` on a kernel flattened to [fan_in, out], stored
+    ``[out, ...]`` as torch keeps it."""
+    cols = w.shape[0]
+    rows = w[0].numel()
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    w.copy_(q.T.reshape(w.shape))
+
+
+def init_flax_like_(model: nn.Module, generator: torch.Generator,
+                    orthogonal: Callable[[str], bool] = lambda name: False
+                    ) -> nn.Module:
+    """Fresh weights drawn as a flax init draws them (its distributions,
+    not its bits): conv and dense kernels xavier-uniform, or orthogonal
+    where ``orthogonal(name)`` holds; GRU cells orthogonal with gate bias
+    1.0; other biases and BN offsets zero; BN moments (0, 1)."""
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            gru = "ScanTFGRUCell_" in name
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = mod.weight
+                if gru or orthogonal(name):
+                    orthogonal_(w, generator)
+                else:
+                    fan_out = w.shape[0] * w[0, 0].numel()
+                    fan_in = w[0].numel()
+                    a = math.sqrt(6.0 / (fan_in + fan_out))
+                    w.uniform_(-a, a, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.fill_(1.0 if gru and name.endswith("Dense_0")
+                                   else 0.0)
+            elif isinstance(mod, TFBatchNorm):
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+    return model

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voicepuppet_torch.models.layers import pad_same
+from voicepuppet_torch.models.layers import SameConv2d, SameConvTranspose2d
 
 
 def lrelu(x, a: float = 0.2):
@@ -63,34 +63,24 @@ class GenConv(nn.Module):
 
     def __init__(self, in_ch: int, features: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, 4, 2, padding=0)
+        self.Conv_0 = SameConv2d(in_ch, features, (4, 4), (2, 2), bias=True)
 
     def forward(self, x):
-        c = self.Conv_0
-        return F.conv2d(pad_same(x, (4, 4), (2, 2)), c.weight.to(x.dtype),
-                        c.bias.to(x.dtype), c.stride)
+        return self.Conv_0(x)
 
 
 class GenDeconv(nn.Module):
-    """4x4 stride-2 'SAME' transposed conv (ref: pixrefer.py:76-86).
-
-    flax ``ConvTranspose(padding="SAME")`` is ``lax.conv_transpose``: the
-    input dilated by 2, padded by ``(k+s-2) - ceil((k+s-2)/2)`` = (2, 2)
-    for k=4, s=2, then a plain correlation — output exactly 2x.  torch's
-    ``ConvTranspose2d(padding=p)`` pads the dilated input by ``k-1-p``,
-    so p = 1 gives the same (2, 2); its kernel is the spatially flipped
-    flax kernel (weights.py)."""
+    """4x4 stride-2 'SAME' transposed conv (ref: pixrefer.py:76-86):
+    ``lax.conv_transpose`` pads the dilated input (2, 2), torch's
+    ``padding=1`` (``layers.SameConvTranspose2d``); its kernel is the
+    spatially flipped flax kernel (weights.py)."""
 
     def __init__(self, in_ch: int, features: int):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(in_ch, features, 4, 2,
-                                                  padding=1)
+        self.ConvTranspose_0 = SameConvTranspose2d(in_ch, features, 4, 2)
 
     def forward(self, x):
-        c = self.ConvTranspose_0
-        return F.conv_transpose2d(x, c.weight.to(x.dtype),
-                                  c.bias.to(x.dtype), c.stride, c.padding,
-                                  c.output_padding)
+        return self.ConvTranspose_0(x)
 
 
 class Generator(nn.Module):

@@ -1,3 +1,3 @@
-"""Training: the BFMNet and PixRefer trainers on one device, their
-optimizer, train states, checkpoints and logs (port of
-``voicepuppet_tpu/train``)."""
+"""Training: the BFMNet, PixRefer, PixFlow, ATNet and VGNet trainers on
+one device, their optimizer, loop, train states, checkpoints and logs
+(port of ``voicepuppet_tpu/train``)."""

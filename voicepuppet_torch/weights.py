@@ -12,12 +12,22 @@ state_dict key one to one, with these layout changes:
     (``transpose_kernel=False``: a plain correlation over the dilated
     input) -> torch ``ConvTranspose2d`` ``weight [in, out, kh, kw]``, which
     is the gradient of a conv and so correlates with the spatially flipped
-    kernel: the kernel is flipped in both spatial axes
+    kernel: the kernel is flipped in both spatial axes.  A transposed conv
+    is recognised by flax's own scope name, ``ConvTranspose_<i>``, or,
+    where the parent names it, by the target module: the functions given
+    a ``module`` treat the weight of each ``nn.ConvTranspose2d`` in it so.
+    Its ``'SAME'`` padding is ``layers.SameConvTranspose2d``'s business:
+    4 before and 3 after at k=7 s=2, which torch reaches by ``padding=2``
+    and a crop of the last row and column
   * ``TFBatchNorm`` ``params/.../BatchNorm_0/bias`` and
     ``batch_stats/.../BatchNorm_0/{mean,var}`` -> ``bias``,
     ``running_mean``, ``running_var`` (the ``BatchNorm_0`` scope is folded
     into ``TFBatchNorm``)
-  * ``StatelessBatchNorm`` ``scale`` -> ``weight``
+  * ``StatelessBatchNorm`` ``scale`` -> ``weight``; VGNet's
+    ``StatelessCenterBN`` holds a lone ``bias``, which maps as any bias
+  * ``nn.scan`` cells keep their flax scope (``ScanTFGRUCell_0``,
+    VGNet's ``ScanConv2dGRUCell_0``): the scanned cell's parameters are
+    shared over time, so they are one module's
 
 The same rules carry every parameter tree the trainers hold: BFMNet's
 ``batch_stats``, the discriminator's params, the VGG trunk's
@@ -34,7 +44,8 @@ inverse used by the exports.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import (Any, Dict, FrozenSet, Iterator, Mapping, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -53,14 +64,30 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
             yield path + (str(key),), np.asarray(value)
 
 
-def convert_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
-    """One JAX leaf -> the torch layout of the matching parameter."""
+def transposed_keys(module: Optional[torch.nn.Module]) -> FrozenSet[str]:
+    """The state_dict keys of the weights of ``module``'s transposed
+    convs (none without a module)."""
+    if module is None:
+        return frozenset()
+    return frozenset(f"{name}.weight" if name else "weight"
+                     for name, m in module.named_modules()
+                     if isinstance(m, torch.nn.ConvTranspose2d))
+
+
+def _is_transpose(path: Tuple[str, ...], transposed: FrozenSet[str]) -> bool:
+    return len(path) > 1 and (path[-2].startswith("ConvTranspose")
+                              or state_key_for(path) in transposed)
+
+
+def convert_leaf(path: Tuple[str, ...], value: np.ndarray,
+                 transposed: FrozenSet[str] = frozenset()) -> np.ndarray:
+    """One JAX leaf -> the torch layout of the matching parameter
+    (``transposed``: :func:`transposed_keys` of the target module)."""
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:
         return value.T
-    if value.ndim == 4 and len(path) > 1 and path[-2].startswith(
-            "ConvTranspose"):
+    if value.ndim == 4 and _is_transpose(path, transposed):
         return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
     if value.ndim == 4:
         return np.transpose(value, (3, 2, 0, 1))
@@ -68,15 +95,15 @@ def convert_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
                      f"{'/'.join(path)}")
 
 
-def flax_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+def flax_leaf(path: Tuple[str, ...], value: np.ndarray,
+              transposed: FrozenSet[str] = frozenset()) -> np.ndarray:
     """The inverse of :func:`convert_leaf`: a torch-layout parameter -> the
     JAX leaf at ``path``."""
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:
         return value.T
-    if value.ndim == 4 and len(path) > 1 and path[-2].startswith(
-            "ConvTranspose"):
+    if value.ndim == 4 and _is_transpose(path, transposed):
         return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]
     if value.ndim == 4:
         return np.transpose(value, (2, 3, 1, 0))
@@ -93,9 +120,13 @@ def state_key_for(path: Tuple[str, ...]) -> str:
     return ".".join(mods + [_LEAF_NAMES[path[-1]]])
 
 
-def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(tree: Mapping,
+                         module: Optional[torch.nn.Module] = None
+                         ) -> Dict[str, torch.Tensor]:
     """flax variables (``{"params": ..., "batch_stats": ...}``) or a bare
-    params tree -> a state_dict keyed like the port's modules."""
+    params tree -> a state_dict keyed like the port's modules; ``module``,
+    the target, names the transposed convs flax's scopes do not."""
+    transposed = transposed_keys(module)
     top = set(tree)
     roots = ([tree[c] for c in _COLLECTIONS if c in tree]
              if top & set(_COLLECTIONS) else [tree])
@@ -103,7 +134,7 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for root in roots:
         for path, value in _leaves(root):
             out[state_key_for(path)] = torch.from_numpy(np.ascontiguousarray(
-                convert_leaf(path, value), dtype=np.float32))
+                convert_leaf(path, value, transposed), np.float32))
     return out
 
 
@@ -126,7 +157,7 @@ def check_state_dict(own: Mapping[str, torch.Tensor],
 def load_flax_(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
     """Load a flax tree into ``module``, failing on any missing,
     unexpected or mis-shaped entry."""
-    state = state_dict_from_flax(tree)
+    state = state_dict_from_flax(tree, module)
     own = module.state_dict()
     bad = [k for k in state if k in own and own[k].shape != state[k].shape]
     if bad:
@@ -138,14 +169,17 @@ def load_flax_(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
 
 
 def flax_from_state_dict(state: Mapping[str, torch.Tensor],
-                         template: Mapping) -> Dict:
+                         template: Mapping,
+                         module: Optional[torch.nn.Module] = None) -> Dict:
     """A state_dict -> the JAX tree shaped like ``template`` (flax
     variables or a bare params tree; only its paths are read), as numpy
     arrays: the inverse of :func:`state_dict_from_flax`."""
+    transposed = transposed_keys(module)
+
     def build(tree, path):
         return {k: build(v, path + (k,)) if isinstance(v, Mapping)
                 else flax_leaf(path + (k,), state[state_key_for(
-                    path + (k,))].detach().cpu().float().numpy())
+                    path + (k,))].detach().cpu().float().numpy(), transposed)
                 for k, v in tree.items()}
     if set(template) & set(_COLLECTIONS):
         return {c: build(template[c], ()) for c in _COLLECTIONS
@@ -165,16 +199,19 @@ def _find_adam(opt_state) -> Any:
     return None
 
 
-def adam_state_from_optax(opt_state) -> Dict[str, Any]:
+def adam_state_from_optax(opt_state,
+                          module: Optional[torch.nn.Module] = None
+                          ) -> Dict[str, Any]:
     """An optax ``chain([clip_by_global_norm,] adam(schedule))`` state ->
     ``{"count": int, "mu": state_dict, "nu": state_dict}`` for
-    :func:`load_adam_state_`."""
+    :func:`load_adam_state_` (``module``: as for
+    :func:`state_dict_from_flax`)."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optax state")
     return {"count": int(np.asarray(adam.count)),
-            "mu": state_dict_from_flax(adam.mu),
-            "nu": state_dict_from_flax(adam.nu)}
+            "mu": state_dict_from_flax(adam.mu, module),
+            "nu": state_dict_from_flax(adam.nu, module)}
 
 
 def load_adam_state_(optimizer: torch.optim.Optimizer,
@@ -196,6 +233,7 @@ def adam_state_to_flax(optimizer: torch.optim.Optimizer,
     ``mu``/``nu`` shaped like the params tree ``template``."""
     names = dict(module.named_parameters())
     moments = {m: flax_from_state_dict(
-        {n: optimizer.state[p][m] for n, p in names.items()}, template)
+        {n: optimizer.state[p][m] for n, p in names.items()}, template,
+        module)
         for m in ("mu", "nu")}
     return {"count": optimizer.param_groups[0]["count"], **moments}
