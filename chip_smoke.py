@@ -147,6 +147,28 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         phase 16's 1e-5), the CPU's reading on the batch's
                         rows swapped inside the update band and the card's
                         with TF32 on outside it; VGNet's D scores.
+ 22. data parallel      BFMNet at Config() (B 8, T 24) and PixRefer at 512²
+                        (ngf 64, batch 2): a world-1 NCCL group whose 3
+                        Adam steps are bit-equal to the plain step's (cuDNN
+                        deterministic, the plain step repeating itself as
+                        the control); two spawned ranks sharing the card
+                        over gloo: the averaged SGD gradients against the
+                        single-process step on the global batch within the
+                        CPU tests' bands (the head's 1e-4 over its leaves
+                        together: L1 sign changes move a leaf's max), or 3x
+                        the single step's reading with cuDNN off,
+                        half-batch kernels or float64 BN moments where that
+                        is larger (twice
+                        the average must fall outside), the ranks'
+                        parameters and buffers identical after 3 Adam
+                        steps; ms per step.
+ 23. prep               prepare_dataset.Schedule steps 1, 5 (256²) and 6
+                        (512x1536 panels, the segmentation and matting nets
+                        at random init on the card) over a 40-frame clip of
+                        the 189² synthetic BFM, then makelist: K1 exactly 3
+                        times per render call (ceil(40/16)), the faces bit
+                        for bit the plain raster's, the nets card vs CPU
+                        within PREP_MODEL_BAND; wall seconds of each step.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that did not launch fails the script.
@@ -1806,6 +1828,504 @@ def phase_zoo_card_vs_cpu(dev, card):
     if failed:
         raise AssertionError(f"zoo card vs CPU: {failed}")
 
+# ---- 22. data parallelism ---------------------------------------------
+DP_STEPS = 3
+# the CPU tests' bands (tests/test_torch_train_dp*.py): a leaf after the
+# batch-norm trunk within 1e-4 of its max |g|; a trunk leaf within 0.15
+# and the trunk within 2e-2 in relative L2; a true-zero leaf by |g|
+DP_HEAD, DP_TRUNK, DP_TRUNK_L2, DP_NULL = 1e-4, 0.15, 2e-2, 1e-4
+DP_READING_FACTOR = 3.0
+DP_TRUNKS = {"bfmnet": "mfcc_encoder.MfccNet_0.", "pixrefer": "gen."}
+DP_BFM_LENS = (24, 20, 24, 18, 24, 24, 22, 24)
+
+
+def dp_batch(name):
+    """Phase 22's global batch: BFMNet B 8, T 24 (rows of several
+    lengths); PixRefer 512², batch 2; numpy from the seed."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 22)
+    if name == "bfmnet":
+        b, t = len(DP_BFM_LENS), max(DP_BFM_LENS)
+        return (rng.randn(b, t, 257).astype(np.float32) * 0.1,
+                rng.rand(b, t, 1).astype(np.float32) * 0.1,
+                rng.randn(b, t * 5, 80).astype(np.float32),
+                np.asarray(DP_BFM_LENS, np.int32))
+    s = 512
+    return tuple(rng.rand(2, s, s, c).astype(np.float32)
+                 for c in (6, 6, 3, 3))
+
+
+def dp_trainer(name, dev, mesh, tx=None, dropout=True):
+    """(trainer, {key: module}) of phase 22 at full width: Config()'s
+    BFMNet (width 1.0, dropout 0.25 unless ``dropout`` is off: a rank's
+    masks cannot be the single process's, the 189² synthetic BFM's loss
+    basis) or PixRefer (512², ngf/ndf 64, the VGG trunk from seed 17);
+    ``tx`` an optimizer factory (default the reference Adams)."""
+    import dataclasses
+    from voicepuppet_torch import config as tcfg
+    cfg = tcfg.Config()
+    if not dropout:
+        b = cfg.bfmnet
+        cfg = dataclasses.replace(cfg, bfmnet=dataclasses.replace(
+            b, training=dataclasses.replace(b.training, drop_rate=0.0)))
+    if name == "bfmnet":
+        from voicepuppet_torch.face3d import bfm
+        from voicepuppet_torch.train.bfmnet_trainer import BFMNetTrainer
+        tr = BFMNetTrainer(cfg, bfm.synthetic_bfm(num_theta=189,
+                                                  num_phi=189),
+                           tx=tx, device=dev, mesh=mesh)
+        state = tr.init_state(seed=SEED)
+        return tr, state, {"": state.model}
+    from voicepuppet_torch.train.pixrefer_trainer import PixReferTrainer
+    tr = PixReferTrainer(cfg, g_tx=tx, d_tx=tx, device=dev, mesh=mesh)
+    state = tr.init_state(seed=SEED)
+    return tr, state, {"gen.": state.gen, "disc.": state.disc}
+
+
+def dp_step(tr, state, batch, gen):
+    if gen is None:
+        return tr.train_step(state, batch)
+    return tr.train_step(state, batch, gen)
+
+
+def dp_generator(name, dev, rank=0):
+    """BFMNet's dropout stream (the trainers' ``rank_generator``)."""
+    from voicepuppet_torch.parallel.mesh import rank_generator
+    return rank_generator(SEED, rank, dev) if name == "bfmnet" else None
+
+
+def dp_grads(modules):
+    return {k + n: p.grad.detach().float().cpu()
+            for k, m in modules.items() for n, p in m.named_parameters()
+            if p.grad is not None}
+
+
+def dp_bands(got, want, trunk):
+    """(head relative L2, worst trunk leaf, trunk relative L2, worst
+    true-zero |g|, worst head leaf, its name) of gradients ``got``
+    against ``want``: a leaf's error is over its max |g|."""
+    import torch
+    head = tr_ = null = 0.0
+    worst = ""
+    diffs = {True: [], False: []}
+    refs = {True: [], False: []}
+    for k, w in want.items():
+        g = got[k]
+        scale = float(w.abs().max())
+        if scale < DP_NULL:
+            null = max(null, float(g.abs().max()))
+            continue
+        err = float((g - w).abs().max()) / scale
+        in_trunk = k.startswith(trunk)
+        diffs[in_trunk].append((g - w).reshape(-1))
+        refs[in_trunk].append(w.reshape(-1))
+        if in_trunk:
+            tr_ = max(tr_, err)
+        elif err > head:
+            head, worst = err, k
+    l2 = {t: (float(torch.cat(diffs[t]).norm() / torch.cat(refs[t]).norm())
+              if diffs[t] else 0.0) for t in (True, False)}
+    return l2[False], tr_, l2[True], null, head, worst
+
+
+def dp_placed_bands(reading):
+    """Phase 22's bands on the card (head relative L2, trunk leaf, trunk
+    relative L2, true-zero |g|): the CPU tests' bands, the head's 1e-4
+    taken over the head's leaves together — at full width on the card
+    the forward's float noise (7.2e-6 of the output, the moments equal to
+    1e-7) crosses the L1 loss's sign changes and moves a head leaf's max
+    by 3.4e-4 (measured on one H100) — or DP_READING_FACTOR times the card's
+    own float-order noise of the single-process step where that is
+    larger:
+    the step with cuDNN off (PyTorch's own convs), with its convs and
+    GEMMs run per half batch (the kernels a rank launches), and with its
+    BN moments accumulated in float64 (as the synced moments are), each
+    against the step itself — the classes of difference that a rank's
+    half-batch kernels and the synced moments make."""
+    cpu = (DP_HEAD, DP_TRUNK, DP_TRUNK_L2, DP_NULL)
+    return tuple(max(c, DP_READING_FACTOR * r)
+                 for c, r in zip(cpu, reading[:4]))
+
+
+class half_batch_kernels:
+    """Within the block (when ``on``), ``F.conv2d``, ``F.conv_transpose2d``
+    and ``F.linear`` run each half of their batch as a call of its own and
+    concatenate: the same rows through the kernels a rank of a two-rank
+    group launches (half the batch each)."""
+
+    NAMES = ("conv2d", "conv_transpose2d", "linear")
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        if not self.on:
+            return
+        self.saved = {n: getattr(F, n) for n in self.NAMES}
+
+        def split(fn):
+            def run(x, *a, **k):
+                if x.dim() < 2 or x.shape[0] % 2:
+                    return fn(x, *a, **k)
+                h = x.shape[0] // 2
+                return torch.cat([fn(x[:h], *a, **k), fn(x[h:], *a, **k)])
+            return run
+        for n, fn in self.saved.items():
+            setattr(F, n, split(fn))
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        if self.on:
+            for n, fn in self.saved.items():
+                setattr(F, n, fn)
+
+
+def dp_within(reading, bands):
+    return all(r < b for r, b in zip(reading[:4], bands))
+
+
+def digest(modules):
+    """SHA-256 of every parameter and buffer of ``modules``, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for m in modules.values():
+        for k, v in m.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase22_rank(mesh, name, single_path):
+    """One rank of phase 22's two-rank group (gloo, both on the card):
+    the SGD step's averaged gradients (dropout off) against the
+    single-process global-batch step's (``single_path``), then three Adam
+    steps (dropout on, each rank its own masks), timed, and the digest of
+    the parameters and buffers."""
+    import numpy as np
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = mesh.device
+    batch = dp_batch(name)
+    sgd = lambda params: torch.optim.SGD(params, lr=1.0)
+    tr, state, mods = dp_trainer(name, dev, mesh, sgd, dropout=False)
+    _, metrics = dp_step(tr, state, batch, dp_generator(name, dev,
+                                                        mesh.rank))
+    want = torch.load(single_path, weights_only=True)
+    got = dp_grads(mods)
+    bands = dp_bands(got, want["grads"], DP_TRUNKS[name])
+    twice = dp_bands({k: 2 * v for k, v in got.items()}, want["grads"],
+                     DP_TRUNKS[name])
+    loss = float(next(iter(metrics.values())))
+    del tr, state, mods
+    tr, state, mods = dp_trainer(name, dev, mesh)
+    gen = dp_generator(name, dev, mesh.rank)
+    ms = []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp_step(tr, state, batch, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"bands": bands, "twice": twice, "loss": loss,
+            "want_loss": want["loss"],
+            "digest": digest(mods), "ms": ms, "step": state.step,
+            "finite": bool(np.isfinite(loss))}
+
+
+def phase_dp(dev, card, work):
+    """22. Data parallelism at full width, BFMNet (B 8, T 24) and PixRefer
+    (512², batch 2): (1) a world-1 NCCL group (``file://`` store): each of
+    3 Adam steps bit-equal to the plain step, after a control that the
+    plain step repeats itself bit for bit (cuDNN deterministic); (2) two
+    spawned ranks sharing the card over gloo: the SGD step's averaged
+    gradients against the single-process global-batch step's within
+    ``dp_placed_bands`` (the CPU tests' bands, the head's over its leaves
+    together, or 3x the single step's
+    own float-order noise, with cuDNN off, half-batch kernels or float64
+    BN moments, where that is larger), twice
+    the average outside them, then 3 Adam steps after which both ranks'
+    digests of parameters and buffers agree; ms per step of each
+    form."""
+    import torch
+    import torch.distributed as dist
+    from voicepuppet_torch.models import layers
+    from voicepuppet_torch.parallel.mesh import make_mesh
+    from voicepuppet_torch.parallel.spawn import run_ranks
+    os.makedirs(work, exist_ok=True)
+    plain_moments = layers.batch_moments
+
+    def moments64(xf, group=None):
+        red = (0,) + tuple(range(2, xf.dim()))
+        var, mean = torch.var_mean(xf.double(), dim=red, correction=0)
+        return mean.float(), var.float()
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "nccl_store"), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(dev)
+        if (mesh.world, mesh.group is None) != (1, False):
+            raise AssertionError(f"world-1 NCCL group: {mesh}")
+        for name in ("bfmnet", "pixrefer"):
+            batch = dp_batch(name)
+            per_step, times = {}, {}
+            for label, m in (("plain", None), ("plain again", None),
+                             ("world 1", mesh)):
+                tr, state, mods = dp_trainer(name, dev, m)
+                gen = dp_generator(name, dev)
+                sds = []
+                for _ in range(DP_STEPS):
+                    dp_step(tr, state, batch, gen)
+                    sds.append({k + n: v.detach().clone()
+                                for k, mod in mods.items()
+                                for n, v in mod.state_dict().items()})
+                times[label] = step_ms(lambda: dp_step(tr, state, batch,
+                                                       gen), 1, 5)
+                per_step[label] = sds
+                del tr, state, mods
+            for label in ("plain again", "world 1"):
+                for i, (a, b) in enumerate(zip(per_step["plain"],
+                                               per_step[label])):
+                    bad = [k for k in a if not torch.equal(a[k], b[k])]
+                    if bad:
+                        what = ("the plain step does not repeat itself on "
+                                "the card" if label == "plain again"
+                                else "the world-1 step differs from the "
+                                     "plain step")
+                        raise AssertionError(f"dp {name}: {what} at step "
+                                             f"{i + 1}: {bad[:3]}")
+            del per_step
+            torch.cuda.empty_cache()
+            log(f"dp world-1 nccl {name}: {DP_STEPS} Adam steps bit-equal "
+                f"to the plain step (the plain step repeats itself bit for "
+                f"bit); ms/step plain {times['plain']:.3f}, again "
+                f"{times['plain again']:.3f}, world-1 group "
+                f"{times['world 1']:.3f} (median of 5 after 1 warm, CUDA "
+                f"events); {card}")
+    finally:
+        dist.destroy_process_group()
+    for name in ("bfmnet", "pixrefer"):
+        batch = dp_batch(name)
+        runs = []
+        for variant in ("plain", "cudnn off", "float64 moments",
+                        "half-batch kernels"):
+            torch.backends.cudnn.enabled = variant != "cudnn off"
+            layers.batch_moments = (moments64 if variant == "float64 moments"
+                                    else plain_moments)
+            tr, state, mods = dp_trainer(
+                name, dev, None, lambda p: torch.optim.SGD(p, lr=1.0),
+                dropout=False)
+            with half_batch_kernels(variant == "half-batch kernels"):
+                _, metrics = dp_step(tr, state, batch,
+                                     dp_generator(name, dev))
+            runs.append((dp_grads(mods),
+                         float(next(iter(metrics.values())))))
+            del tr, state, mods
+        torch.backends.cudnn.enabled = True
+        layers.batch_moments = plain_moments
+        single = os.path.join(work, f"{name}_single.pt")
+        torch.save({"grads": runs[0][0], "loss": runs[0][1]}, single)
+        readings = [dp_bands(g, runs[0][0], DP_TRUNKS[name])
+                    for g, _ in runs[1:]]
+        reading = tuple(max(r[i] for r in readings) for i in range(4))
+        bands = dp_placed_bands(reading)
+        del runs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            ranks = run_ranks(phase22_rank, 2, name, single,
+                              device=f"cuda:{dev.index or 0}",
+                              backend="gloo", timeout=600)
+        except RuntimeError as exc:
+            log(f"dp 2 ranks {name}: two gloo ranks with CUDA tensors on "
+                f"one card failed: {str(exc).splitlines()[-1]}")
+            raise
+        wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        if r0["digest"] != r1["digest"] or r0["step"] != r1["step"]:
+            raise AssertionError(f"dp {name}: the ranks' parameters and "
+                                 f"buffers differ after {DP_STEPS} steps")
+        if r0["bands"] != r1["bands"] or not dp_within(r0["bands"], bands):
+            raise AssertionError(f"dp {name}: 2-rank gradients vs the "
+                                 f"single-process step (head, trunk, trunk "
+                                 f"L2, null) {r0['bands']}, {r1['bands']}; "
+                                 f"bands {bands} (readings {readings})")
+        if dp_within(r0["twice"], bands):
+            raise AssertionError(f"dp {name}: twice the averaged gradients "
+                                 f"{r0['twice']} pass the bands {bands}")
+        rel = abs(r0["loss"] - r0["want_loss"]) / abs(r0["want_loss"])
+        if not (r0["finite"] and rel < 1e-4):
+            raise AssertionError(f"dp {name}: loss {r0['loss']} vs "
+                                 f"{r0['want_loss']}")
+        fmt = lambda xs: "/".join(f"{x:.3g}" for x in xs[:4])
+        log(f"dp 2 ranks gloo {name}: one card, {DP_STEPS} Adam steps, "
+            f"ranks bit-identical (digest {r0['digest'][:12]}); the SGD "
+            f"step's averaged gradients vs the single-process global-batch "
+            f"step, head L2/trunk leaf/trunk L2/true-zero |g|: "
+            f"{fmt(r0['bands'])} (worst head leaf {r0['bands'][4]:.3g}, "
+            f"{r0['bands'][5]}) "
+            f"in bands {fmt(bands)} (the CPU tests' {DP_HEAD}/{DP_TRUNK}/"
+            f"{DP_TRUNK_L2}/{DP_NULL}, or {DP_READING_FACTOR:g}x the "
+            f"single step's reading with cuDNN off, half-batch kernels or "
+            f"float64 BN moments "
+            f"{fmt(reading)}); twice the "
+            f"average "
+            f"{fmt(r0['twice'])} falls outside; loss rel {rel:.3g}; ms/step "
+            f"{', '.join(f'{x:.1f}' for x in r0['ms'])} (host clock, "
+            f"steps 1-{DP_STEPS}); group {wall:.1f} s with the spawn; "
+            f"{card}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        saved
+
+
+# ---- 23. the data-prep toolchain -----------------------------------------
+PREP_FRAMES = 40
+PREP_SRC = 224               # the clip's frames
+# the prep nets' outputs card vs CPU (float32, TF32 off), max |diff|: the
+# matting net read 6.91e-5 and the segmentation net 8.9e-8 on an H100,
+# the matting net with TF32 on 3.55e-4
+PREP_MODEL_BAND = 1.5e-4
+
+
+def save_bfm_mat(model, model_dir):
+    """``model`` as the ``BFM_model_front.mat`` that ``load_bfm`` reads."""
+    from scipy.io import savemat
+    os.makedirs(model_dir, exist_ok=True)
+    savemat(os.path.join(model_dir, "BFM_model_front.mat"), {
+        "meanshape": model.meanshape, "idBase": model.idBase,
+        "exBase": model.exBase, "meantex": model.meantex,
+        "texBase": model.texBase, "point_buf": model.point_buf,
+        "tri": model.tri, "keypoints": model.keypoints[None] + 1})
+
+
+def phase_prep(dev, counts, reset_counts, card, work):
+    """23. The prep path at full width: ``Schedule`` steps 1, 5 (256²) and
+    6 (512² panels, 512x1536, the segmentation and matting nets at a
+    seeded random init on the card) over a 40-frame clip (coefficients of
+    the 189² synthetic BFM, the landmarks they project to, JPEG frames),
+    then ``makelist`` over what step 6 wrote.  K1 exactly ⌈40/16⌉ = 3
+    times per render call; the rendered faces bit for bit the plain
+    raster's; the nets' outputs card vs CPU within PREP_MODEL_BAND;
+    wall seconds of each step."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from PIL import Image
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.face3d import bfm, morph
+    from voicepuppet_torch.tools import makelist
+    from voicepuppet_torch.tools import models_torch as mt
+    from voicepuppet_torch.tools.prepare_dataset import CHUNK, Schedule
+    t = PREP_FRAMES
+    model = bfm.synthetic_bfm(num_theta=189, num_phi=189)
+    save_bfm_mat(model, os.path.join(work, "models"))
+    coeff = bfm.demo_coeff(model, batch=t, seed=SEED + 23)
+    rng = np.random.RandomState(SEED + 23)
+    coeff[:, 80:144] += rng.randn(t, 64).astype(np.float32) * 0.3
+    rec = morph.reconstruct(torch.as_tensor(coeff, device=dev),
+                            morph.device_bfm(model, dev))
+    lmk = rec.landmarks_2d.reshape(t, -1).cpu().numpy()
+    clip = os.path.join(work, "src", "spk0", "clip0")
+    os.makedirs(clip)
+    for i in range(t):
+        Image.fromarray((rng.rand(PREP_SRC, PREP_SRC, 3) * 255).astype(
+            np.uint8)).save(os.path.join(clip, f"{i}.jpg"))
+    np.savetxt(os.path.join(clip, "landmark.txt"), lmk, fmt="%.3f",
+               delimiter=",")
+    np.savetxt(os.path.join(clip, "bfmcoeff.txt"), coeff, fmt="%.6f",
+               delimiter=",")
+    torch.manual_seed(SEED)
+    nets = {"seg": (mt.UnetMobilenetV2(),
+                    os.path.join(work, "seg.pth")),
+            "dim": (mt.DIMMatting(), os.path.join(work, "dim.tar"))}
+    for net, path in nets.values():
+        torch.save({"state_dict": net.state_dict()}, path)
+    cfg = dataclasses.replace(tcfg.Config(),
+                              model_dir=os.path.join(work, "models"))
+    sched = Schedule(cfg, seg_model_path=nets["seg"][1],
+                     matting_model_path=nets["dim"][1], device=dev)
+    src = os.path.join(work, "src")
+    walls, launches = {}, {}
+    for step in (1, 5, 6):
+        dst = os.path.join(work, f"step{step}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sched.run(step, src, dst)
+        torch.cuda.synchronize()
+        walls[step] = time.perf_counter() - t0
+        launched = counts()
+        launches[step] = launched["raster_flat"]
+        want = 0 if step == 1 else -(-t // CHUNK)
+        if n != 1 or launched["raster_flat"] != want \
+                or sum(launched.values()) != want:
+            raise AssertionError(f"prep step {step}: {n} clips, launches "
+                                 f"{launched}, want K1 {want}")
+    size6 = cfg.pixrefer.img_size
+    for step, size in ((5, 256), (6, size6)):
+        out = os.path.join(work, f"step{step}", "spk0", "clip0")
+        names = sorted(os.listdir(out))
+        with Image.open(os.path.join(out, "0.jpg")) as im:
+            shape = (im.height, im.width)
+        if len(names) != t or shape != (size, 3 * size):
+            raise AssertionError(f"prep step {step}: {len(names)} panels "
+                                 f"of {shape}")
+    if not os.path.exists(os.path.join(clip, "ear.txt")):
+        raise AssertionError("prep step 1 wrote no ear.txt")
+    t0 = time.perf_counter()
+    lists = (os.path.join(work, "train.txt"), os.path.join(work, "eval.txt"))
+    n_train, n_eval = makelist.write_dataset(os.path.join(work, "step6"),
+                                             *lists, mode="pixrefer")
+    wall_list = time.perf_counter() - t0
+    line = open(lists[0]).read().strip()
+    if (n_train, n_eval) != (1, 0) or not line.endswith(f"|{t}"):
+        raise AssertionError(f"makelist: {n_train}/{n_eval}, {line!r}")
+    faces = sched._render_faces(coeff, size6)
+    with plain_raster():
+        want = sched._render_faces(coeff, size6)
+    if not (np.array_equal(faces, want) and faces.max() > 0):
+        raise AssertionError("prep faces: K1 differs from the plain raster")
+    # the nets on the card against the CPU on one panel's input
+    img = np.asarray(Image.open(os.path.join(clip, "0.jpg")).convert(
+        "RGB").resize((size6, size6)), np.float32) / 255.0
+    seg_cpu = mt.UnetMobilenetV2().eval()
+    seg_cpu.load_state(nets["seg"][1])
+    prob_card = mt.predict_mask(sched._seg, img)
+    prob_cpu = mt.predict_mask(seg_cpu, img)
+    dim_cpu = mt.DIMMatting().eval()
+    dim_cpu.load_state(nets["dim"][1])
+    x = torch.from_numpy(img).permute(2, 0, 1)[None]
+    tm = torch.from_numpy((prob_cpu > 0.5).astype(np.float32))[None, None]
+    with torch.no_grad():
+        a_cpu = dim_cpu(x, tm)
+        a_card = sched._dim(x.to(dev), tm.to(dev)).cpu()
+        torch.backends.cudnn.allow_tf32 = True
+        a_tf32 = sched._dim(x.to(dev), tm.to(dev)).cpu()
+        torch.backends.cudnn.allow_tf32 = False
+    d_seg = float(np.abs(prob_card - prob_cpu).max())
+    d_dim = float((a_card - a_cpu).abs().max())
+    d_tf32 = float((a_tf32 - a_cpu).abs().max())
+    if not (d_seg < PREP_MODEL_BAND and d_dim < PREP_MODEL_BAND):
+        raise AssertionError(f"prep nets card vs CPU: seg {d_seg}, "
+                             f"matting {d_dim} (band {PREP_MODEL_BAND})")
+    log(f"prep: {t}-frame clip of the {model.num_vertices}-vertex BFM; "
+        f"step 1 {walls[1]:.3f} s, step 5 (256²) {walls[5]:.3f} s, step 6 "
+        f"({size6}² panels {size6}x{3 * size6}, seg + matting nets on the "
+        f"card) {walls[6]:.3f} s, makelist {wall_list:.4f} s; K1 launches "
+        f"{launches[5]} and {launches[6]} per render call "
+        f"(ceil({t}/{CHUNK})); faces at {size6}² == plain raster bit for "
+        f"bit; nets card vs CPU max |diff| seg {d_seg:.3g}, matting "
+        f"{d_dim:.3g} (band {PREP_MODEL_BAND}; matting with TF32 on "
+        f"{d_tf32:.3g}); {card}")
+    return dict(launches=launches[5] + launches[6])
+
+
 def main():
     import numpy as np
     import torch
@@ -2453,6 +2973,16 @@ def main():
         phase_zoo_card_vs_cpu(dev, card)
         log(f"phase 21 (zoo card vs cpu) {time.perf_counter() - t0:.1f} s")
 
+    # ---- 22-23. data parallelism, the prep toolchain ----------------------
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        phase_dp(dev, card, os.path.join(work, "dp"))
+        log(f"phase 22 (data parallel) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        prep_run = phase_prep(dev, counts, reset_counts, card,
+                              os.path.join(work, "prep"))
+        log(f"phase 23 (prep) {time.perf_counter() - t0:.1f} s")
+
     pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{
         "name": name,
@@ -2468,7 +2998,8 @@ def main():
         "library_ms": None,
     } for name, replaces, n, err, ms, pms, bms, bby in (
         ("raster_flat", f"{pallas}:126",
-         launches + bfm_run["grid_launches"] + pf_run["launches"],
+         launches + bfm_run["grid_launches"] + pf_run["launches"]
+         + prep_run["launches"],
          max(max_abs_err, pf_run["err"]), k_ms, p_ms, bound, bound_by),
         ("raster_grouped", f"{pallas}:337", k4_launches, k4_err, k4_ms,
          p4g_ms, bound, bound_by),

@@ -19,9 +19,13 @@ the trainers (``train``):
   ops           raster dispatch and the hand-written CUDA raster kernel
   pipeline      coeff program, chunked frame program, YUV/rgb8 drain, CLI,
                 streaming, R-Net identity path, landmarks, mesh video
-  tools         TF checkpoint/GraphDef readers, TF name maps, lm3d
-  train         BFMNet and PixRefer trainers, optimizer, train states,
-                checkpoints, metrics and profiler hook
+  parallel      the data group over torch.distributed: sharded batches,
+                the gradient all-reduce, sync-BN's collectives, spawn
+  tools         TF checkpoint/GraphDef readers, TF name maps, BFM09
+                conversion, the asset converter, dataset prep (K1),
+                list builder, the prep nets
+  train         the five trainers (data-parallel with ``mesh=``),
+                optimizer, train states, checkpoints, metrics, profiler
   utils         video writing, event files, the BFMNet eval grid (K1)
   weights       JAX parameter trees <-> this package's state_dicts
 

@@ -141,8 +141,10 @@ class DatasetConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout of the reference's multi-device training.  The
-    port trains on one device; the fields are kept so that a profile
-    naming them loads unchanged."""
+    port's data group comes from torchrun's environment
+    (``parallel.mesh.make_mesh``: every rank on the data axis, no model
+    axis); the fields are kept so that a profile naming them loads
+    unchanged."""
 
     data_axis: str = "data"
     model_axis: str = "model"

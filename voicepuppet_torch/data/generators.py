@@ -878,11 +878,17 @@ def _to_device(batch, device: torch.device, stream):
     return tuple(out), done
 
 
-def prefetch_to_device(iterator, device="cuda", size: int = 2):
+def prefetch_to_device(iterator, device="cuda", size: int = 2, mesh=None):
     """Keeps ``size`` batches in flight to ``device`` so host work hides
     behind the device step.  On the card the copies run on a side stream;
     a batch is handed out only after the consuming stream waits for its
-    copies, and its tensors are marked as used there."""
+    copies, and its tensors are marked as used there.
+
+    With ``mesh`` (a ``parallel.mesh.DataGroup``) each global batch is cut
+    to this rank's rows before its copy and handed out as the
+    ``LocalRows`` that the trainers' ``shard_batch`` passes through (JAX
+    ``prefetch_to_device(iterator, mesh)``)."""
+    from voicepuppet_torch.parallel.mesh import LocalRows, rank_rows
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     pending = collections.deque()
@@ -894,9 +900,11 @@ def prefetch_to_device(iterator, device="cuda", size: int = 2):
             current.wait_event(done)
             for t in batch:
                 t.record_stream(current)
-        return batch
+        return batch if mesh is None else LocalRows(batch)
 
     for batch in iterator:
+        if mesh is not None:
+            batch = rank_rows(batch, mesh)
         pending.append(_to_device(batch, device, stream))
         if len(pending) >= size:
             yield hand_out()

@@ -67,7 +67,10 @@ def device_bfm(model: BFMModel, device="cuda",
         ex_base=f32(model.exBase),
         meantex=f32(model.meantex.reshape(n, 3)),
         tex_base=f32(model.texBase),
-        tri=torch.as_tensor(tri, device=device).to(torch.int32),
+        # C order: ``load_bfm``'s loadmat arrays are Fortran-ordered, and
+        # the raster kernels take contiguous triangles only
+        tri=torch.as_tensor(np.ascontiguousarray(tri, np.int32),
+                            device=device),
         point_buf=torch.as_tensor(np.asarray(model.point_buf, np.int64) - 1,
                                   device=device),
         keypoints=torch.as_tensor(np.asarray(model.keypoints, np.int64),

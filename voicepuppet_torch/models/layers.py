@@ -15,16 +15,27 @@ Training mode is an explicit ``train`` argument, as in the JAX modules:
 ``TFBatchNorm`` then normalizes with the batch moments and updates its
 running moments, and :func:`dropout` draws its mask from the caller's
 ``torch.Generator``.
+
+Sync-BN: every batch-moment norm of the package (``TFBatchNorm`` here,
+``StatelessBatchNorm`` in ``pixrefer.py``, ``StatelessCenterBN`` in
+``vgnet.py``) is a :class:`SyncBN` with a ``group`` attribute, the JAX
+modules' ``axis_name``.  Inside :func:`sync_bn` the moments combine over
+the group's ranks, so a data-parallel step normalizes as one device on
+the global batch does; outside it, or with a group of one rank, each
+takes its own batch's moments by the code it always ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from voicepuppet_torch.parallel.mesh import AllReduceSum, spans_ranks
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -128,19 +139,65 @@ def dropout(x: torch.Tensor, rate: float,
                                                         device=x.device))
 
 
-def batch_moments(xf: torch.Tensor):
+def batch_moments(xf: torch.Tensor, group=None):
     """Per-channel (axis 1) mean and biased variance of a float32 tensor:
     flax's ``mean(x²) - mean²`` to rounding, taken by ``torch.var_mean``
     in one pass.  Its backward, ``2(x - mean)/N``, is well conditioned;
     the float32 backward of ``mean(x²) - mean²`` cancels two large terms,
     which left BFMNet's head gradients 7.8e-4 of a leaf's max |g| off
-    JAX's, against 7.7e-6 this way (tests/test_torch_train_bfmnet.py)."""
+    JAX's, against 7.7e-6 this way (tests/test_torch_train_bfmnet.py).
+
+    Over a ``group`` of several ranks the moments are those of all the
+    ranks' rows together, kept free of that cancellation: the global mean
+    first (an :class:`AllReduceSum` of the sums and the counts), then an
+    all-reduce of ``Σ (x - mean)²``.  The partial sums accumulate in
+    float64: float32 sums are less exact than ``var_mean``, and the head
+    gradients behind BFMNet's 57 train-mode BNs moved by 7.8e-4 of a
+    leaf's max with them, against 2.5e-6 this way (one process, measured on
+    the CPU).  Four collectives per call, two in the forward and two in the
+    backward, so every rank must call it in the same order."""
     red = (0,) + tuple(range(2, xf.dim()))
-    var, mean = torch.var_mean(xf, dim=red, correction=0)
-    return mean, var
+    if not spans_ranks(group):
+        var, mean = torch.var_mean(xf, dim=red, correction=0)
+        return mean, var
+    f64 = torch.float64
+    count = torch.full((1,), float(xf.numel() // xf.shape[1]), dtype=f64,
+                       device=xf.device)
+    sums = AllReduceSum.apply(torch.cat([xf.sum(dim=red, dtype=f64),
+                                         count]), group)
+    n = sums[-1].detach()
+    mean = (sums[:-1] / n).float()
+    d = xf - mean.view((1, -1) + (1,) * (xf.dim() - 2))
+    var = AllReduceSum.apply(torch.sum(d * d, dim=red, dtype=f64),
+                             group) / n
+    return mean, var.float()
 
 
-class TFBatchNorm(nn.Module):
+class SyncBN(nn.Module):
+    """A batch-moment norm whose moments combine over ``group``'s ranks
+    (None: this process's batch alone); see :func:`sync_bn`."""
+    group = None
+
+
+@contextlib.contextmanager
+def sync_bn(group, *modules: nn.Module):
+    """Within the block every :class:`SyncBN` under ``modules`` takes its
+    moments over ``group`` (the data-parallel step's forwards); after it,
+    each takes its own batch's again (evaluation and inference, as the
+    JAX trainers' ``axis_name=None`` twins).  With ``group`` None it
+    changes nothing."""
+    bns = [m for mod in modules for m in mod.modules()
+           if isinstance(m, SyncBN)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
+
+
+class TFBatchNorm(SyncBN):
     """tf.contrib.layers.batch_norm: eps 1e-3, offset only (no scale),
     normalizing in float32 over the channel axis 1.
 
@@ -162,7 +219,7 @@ class TFBatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
         if train:
-            mean, var = batch_moments(xf)
+            mean, var = batch_moments(xf, self.group)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

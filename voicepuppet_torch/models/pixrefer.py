@@ -27,19 +27,24 @@ reference's losses (pixrefer.py:334-354).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from voicepuppet_torch.models.layers import SameConv2d, SameConvTranspose2d
+from voicepuppet_torch.models.layers import (SameConv2d,
+                                             SameConvTranspose2d, SyncBN)
+from voicepuppet_torch.parallel.mesh import AllReduceSum, spans_ranks
 
 
 def lrelu(x, a: float = 0.2):
     return F.leaky_relu(x, negative_slope=a)
 
 
-class StatelessBatchNorm(nn.Module):
+class StatelessBatchNorm(SyncBN):
     """Batch-moment normalization with learned scale/offset, eps 1e-5,
-    moments in float32 (ref: pixrefer.py:58-86)."""
+    moments in float32 (ref: pixrefer.py:58-86).  Over a group of several
+    ranks (:func:`layers.sync_bn`) ``mean`` and ``mean²`` are averaged
+    across them, as the JAX module pmeans them (pixrefer.py:81-83)."""
 
     def __init__(self, ch: int, epsilon: float = 1e-5):
         super().__init__()
@@ -51,6 +56,10 @@ class StatelessBatchNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3), keepdim=True)
         mean2 = torch.square(xf).mean(dim=(0, 2, 3), keepdim=True)
+        if spans_ranks(self.group):
+            both = AllReduceSum.apply(torch.cat([mean, mean2]), self.group)
+            both = both / dist.get_world_size(self.group)
+            mean, mean2 = both[:1], both[1:]
         var = mean2 - torch.square(mean)
         inv = torch.rsqrt(var + self.epsilon)
         y = ((xf - mean) * inv * self.weight.view(1, -1, 1, 1)

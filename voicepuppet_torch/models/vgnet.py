@@ -39,7 +39,7 @@ from torch import nn
 
 from voicepuppet_torch.models.layers import (MOBILENET_WIDTHS, MaskedGRU,
                                              SameConv2d,
-                                             SameConvTranspose2d,
+                                             SameConvTranspose2d, SyncBN,
                                              TFBatchNorm, ThinNet,
                                              batch_moments, init_flax_like_)
 
@@ -78,10 +78,11 @@ class DeconvBNElu(nn.Module):
         return F.elu(self.TFBatchNorm_0(self.ConvTranspose_0(x), train))
 
 
-class StatelessCenterBN(nn.Module):
+class StatelessCenterBN(SyncBN):
     """Batch-moment normalization with a learned offset only (eps 1e-3)
     and no running moments, inside the conv-GRU cell (JAX
-    ``vgnet.py:94-104``), at inference too."""
+    ``vgnet.py:94-104``), at inference too.  Under :func:`layers.sync_bn`
+    its moments are the group's (``batch_moments``)."""
 
     def __init__(self, ch: int, epsilon: float = 1e-3):
         super().__init__()
@@ -89,7 +90,7 @@ class StatelessCenterBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x):
-        mean, var = batch_moments(x)
+        mean, var = batch_moments(x, self.group)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return ((x - mean.view(shape)) * torch.rsqrt(var.view(shape)
                                                      + self.epsilon)

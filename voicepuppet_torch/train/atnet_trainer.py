@@ -1,4 +1,4 @@
-"""ATNet trainer on one device (port of
+"""ATNet trainer, data-parallel over a ``parallel.mesh.DataGroup`` (port of
 ``voicepuppet_tpu/train/atnet_trainer.py``:27-195; ref:
 voicepuppet/atvgnet/atnet.py:281-312, train_atnet.py:106-141).
 
@@ -11,8 +11,13 @@ schedule).  The batch is ``data.generators.ATNetBatcher``'s: (landmark
 [B,T,136], ears [B,T,1], poses [B,T,3], mfccs [B,T*5,80], example
 landmark [B,136], seq_len [B]).
 
+Data parallelism (``mesh``): as the BFMNet trainer's (sync-BN forward on
+this rank's rows, one gradient average before clip and Adam, the loss
+averaged over the ranks, rank 0 alone logging and saving).
+
 CLI: ``python -m voicepuppet_torch.train.atnet_trainer --config_path
-<yml> [--steps N] [--device cuda|cpu]``.  The landmark PCA assets load
+<yml> [--steps N] [--device cuda|cpu]`` (on N cards under ``torchrun
+--nproc_per_node N``).  The landmark PCA assets load
 from ``<model_dir>/lmk_mean.npy`` and ``lmk_components.npy`` when present
 (the reference names them through hparams its config never defines);
 otherwise a zero mean and ``models.atnet.synthetic_pca_component``.
@@ -31,7 +36,11 @@ from voicepuppet_torch.config import Config
 from voicepuppet_torch.models.atnet import (ATNet, atnet_loss,
                                             synthetic_pca_component)
 from voicepuppet_torch.models.layers import (init_flax_like_,
-                                             l2_regularization)
+                                             l2_regularization, sync_bn)
+from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
+                                             group_of, mesh_global_batch,
+                                             pmean_metric, replicate,
+                                             shard_batch, shard_batch_local)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.loop import StepLoop
 from voicepuppet_torch.train.optim import reference_adam
@@ -54,16 +63,21 @@ def load_pca_assets(model_dir: str, landmark_size: int = 136,
 class ATNetTrainer(StepLoop):
     """``tx``: a factory, parameters -> optimizer (default: the reference
     Adam with the config's schedule and clip); the parity tests pass
-    SGD."""
+    SGD.  ``mesh``: the data group (None: this process alone, on
+    ``device``)."""
 
     def __init__(self, cfg: Config, pca_component: np.ndarray,
-                 width_mult: float = 1.0, tx=None, device="cuda"):
+                 width_mult: float = 1.0, tx=None, device="cuda",
+                 mesh: Optional[DataGroup] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         full_fp32_matmuls()
         self.pca_component = pca_component
         self.width_mult = width_mult
-        self.global_batch = cfg.atnet.batch_size
+        # the reference's batch 16 (train_atnet.py:41) rounded up
+        self.global_batch = mesh_global_batch(cfg.atnet.batch_size, mesh)
         t = cfg.atnet.training
         self.tx = tx if tx is not None else reference_adam(
             t.learning_rate, t.decay_steps, t.decay_rate,
@@ -78,29 +92,39 @@ class ATNetTrainer(StepLoop):
                                       self.width_mult),
                                 torch.Generator().manual_seed(seed))
         model.to(self.device)
+        replicate([model], self.mesh)
         return TrainState(model, self.tx(model.parameters()))
 
     def loss(self, state: TrainState, batch,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The train-mode loss of ``batch`` (moves the BN running moments,
-        as the step does)."""
+        """The train-mode loss of this rank's rows of ``batch`` (moves the
+        BN running moments, as the step does)."""
         landmark, ears, poses, mfccs, example, seq_len = batch_to_device(
-            batch, self.device)
-        out = state.model(ears, poses, mfccs, example, seq_len, train=True,
-                          generator=generator)
+            shard_batch(batch, self.mesh), self.device)
+        with sync_bn(group_of(self.mesh), state.model):
+            out = state.model(ears, poses, mfccs, example, seq_len,
+                              train=True, generator=generator)
         return (atnet_loss(out, landmark, seq_len)
                 + l2_regularization(state.model))
 
     def train_step(self, state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        """One optimizer step; returns (state, {"loss"}) as a device
+        """One optimizer step on the global ``batch``; returns (state,
+        {"loss"}), the loss averaged over the ranks, as a device
         scalar."""
         loss = self.loss(state, batch, generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(state.model.parameters(), group_of(self.mesh))
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, pmean_metric({"loss": loss.detach()}, self.mesh)
+
+    def train_step_local(self, state: TrainState, local_batch,
+                         generator: Optional[torch.Generator] = None):
+        """The step fed per rank with this rank's rows alone."""
+        return self.train_step(
+            state, shard_batch_local(local_batch, self.mesh), generator)
 
     @torch.no_grad()
     def infer(self, state: TrainState, ears, poses, mfccs, example_lmk,
@@ -116,6 +140,7 @@ def main(argv=None):
     from voicepuppet_torch.config import load_config
     from voicepuppet_torch.data.generators import (ATNetBatcher, FileSource,
                                                    prefetch_to_device)
+    from voicepuppet_torch.parallel.mesh import make_mesh
     from voicepuppet_torch.train.checkpoint import CheckpointManager
     from voicepuppet_torch.train.metrics import (MetricsLogger,
                                                  add_profiler_args,
@@ -126,20 +151,23 @@ def main(argv=None):
     p.add_argument("--ckpt_dir", default="ckpt_atnet")
     p.add_argument("--log_dir", default="log")
     p.add_argument("--steps", type=int, default=None)
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                        "or cpu")
     add_profiler_args(p)
     args = p.parse_args(argv)
 
     cfg = load_config(args.config_path)
-    device = torch.device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     pca_mean, pca_component = load_pca_assets(
         cfg.model_dir, cfg.atnet.landmark_size, cfg.atnet.pca_components)
-    trainer = ATNetTrainer(cfg, pca_component, device=device)
+    trainer = ATNetTrainer(cfg, pca_component, mesh=mesh)
     tcfg = cfg.atnet.training
     ckpt = CheckpointManager(args.ckpt_dir, tcfg.max_to_keep,
-                             tcfg.save_interval)
+                             tcfg.save_interval, mesh=mesh)
     state = ckpt.restore(trainer.init_state())
-    logger = MetricsLogger(args.log_dir, "atnet")
+    logger = MetricsLogger(args.log_dir, "atnet") if mesh.is_main else None
     # the streams take the [136, K] transpose; the model keeps [K, 136]
     batcher = ATNetBatcher(cfg, FileSource(cfg.dataset.train_dataset_path,
                                            cfg),
@@ -147,10 +175,14 @@ def main(argv=None):
                            batch_size=trainer.global_batch, device=device)
     steps = args.steps if args.steps is not None else tcfg.epochs
     try:
-        trainer.fit(state, prefetch_to_device(iter(batcher), device), steps,
-                    logger, ckpt, profiler=profiler_from_args(args))
+        trainer.fit(state, prefetch_to_device(iter(batcher), device,
+                                              mesh=mesh),
+                    steps, logger, ckpt,
+                    profiler=profiler_from_args(args) if mesh.is_main
+                    else None)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""BFMNet trainer on one device (port of
-``voicepuppet_tpu/train/bfmnet_trainer.py``:37-293; ref:
+"""BFMNet trainer, data-parallel over a ``parallel.mesh.DataGroup`` (port
+of ``voicepuppet_tpu/train/bfmnet_trainer.py``:37-293; ref:
 voicepuppet/bfmnet/train_bfmnet.py:112-145).
 
 The step: a train-mode forward (batch-moment BN updating its running
@@ -11,14 +11,27 @@ one metrics row per step, eval with the rendered coefficient grid every
 firing on interval *crossings* so ``steps_per_call`` K > 1 never steps
 over a boundary.  ``train_multi_step`` runs K steps whose metrics stay
 on the device and are fetched once per call — the counterpart of the JAX
-trainer's ``lax.scan`` dispatch.  Data parallelism (sync-BN over a mesh)
-is not ported; on one device BN already sees the full batch.
+trainer's ``lax.scan`` dispatch.
+
+Data parallelism (``mesh``, the JAX trainer's ``mesh=``): the global
+batch is ``mesh_global_batch`` of the configured one, each rank takes
+its rows (``shard_batch``; ``train_step_local`` for a per-rank feed),
+runs the forward with sync-BN (``layers.sync_bn``), back-propagates its
+own mean loss, averages the gradients once (``all_reduce_grads_``) and
+only then clips and steps, so every rank's update is the same.  Dropout
+draws from ``rank_generator``.  Rank 0 alone logs, runs the eval grid
+(running moments, no collective) and writes checkpoints; the others
+wait at a barrier.  With no mesh, or a group of one rank, the step is
+the single-device step, bit for bit.
 
 Float32 training turns TF32 off (``full_fp32_matmuls``), as the JAX
 trainer trains in full float32.
 
 CLI: ``python -m voicepuppet_torch.train.bfmnet_trainer --config_path
-<yml> [--steps N] [--steps_per_call K] [--device cuda|cpu]``.
+<yml> [--steps N] [--steps_per_call K] [--device cuda|cpu]``, on N cards
+``torchrun --nproc_per_node N -m voicepuppet_torch.train.bfmnet_trainer
+...`` (each rank on ``cuda:LOCAL_RANK``, NCCL; gloo with ``--device
+cpu``).
 """
 
 from __future__ import annotations
@@ -35,6 +48,12 @@ from voicepuppet_torch.config import Config
 from voicepuppet_torch.models.bfmnet import (BFMNet, BFMNetLoss,
                                              init_bfmnet_, make_mouth_mask,
                                              total_loss)
+from voicepuppet_torch.models.layers import sync_bn
+from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
+                                             group_of, mesh_global_batch,
+                                             pmean_metric, rank_generator,
+                                             replicate, shard_batch,
+                                             shard_batch_local)
 from voicepuppet_torch.train.optim import bfmnet_optimizer, global_norm
 from voicepuppet_torch.train.state import TrainState
 
@@ -46,52 +65,71 @@ def batch_to_device(batch, device: torch.device):
 
 class BFMNetTrainer:
     """``tx``: a factory, parameters -> optimizer (default: the reference
-    Adam of ``train/optim.py``); the parity tests pass SGD."""
+    Adam of ``train/optim.py``); the parity tests pass SGD.  ``mesh``: the
+    data group (None: this process alone, on ``device``); with one, the
+    rank's device is ``mesh.device``."""
 
     def __init__(self, cfg: Config, face_model,
                  mouth_idx: Optional[np.ndarray] = None, tx=None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[DataGroup] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         full_fp32_matmuls()
         mouth_mask = make_mouth_mask(face_model.num_vertices, mouth_idx,
                                      cfg.bfmnet.mouth_weight)
         self.loss_fn = BFMNetLoss(face_model.exBase, mouth_mask, self.device)
-        self.global_batch = cfg.bfmnet.batch_size
+        # the reference's batch (train_bfmnet.py:43) rounded up to the group
+        self.global_batch = mesh_global_batch(cfg.bfmnet.batch_size, mesh)
         self.tx = tx if tx is not None else bfmnet_optimizer(
             cfg.bfmnet.training)
 
     # ---- state ----
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh weights drawn from ``torch.Generator().manual_seed(seed)``
-        on the CPU, then moved to the device."""
+        on the CPU, then moved to the device (and broadcast from rank 0)."""
         model = init_bfmnet_(BFMNet(self.cfg.bfmnet),
                              torch.Generator().manual_seed(seed))
         model.to(self.device)
+        replicate([model], self.mesh)
         return TrainState(model, self.tx(model.parameters()))
 
     # ---- the step ----
     def loss(self, state: TrainState, batch,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The train-mode loss of ``batch`` (updates the BN running
-        moments as a side effect, as the step does)."""
-        coeff, ears, mfccs, seq_len = batch_to_device(batch, self.device)
-        out = state.model(ears, mfccs, seq_len, train=True,
-                          generator=generator)
+        """The train-mode loss of this rank's rows of ``batch`` (updates
+        the BN running moments as a side effect, as the step does)."""
+        coeff, ears, mfccs, seq_len = batch_to_device(
+            shard_batch(batch, self.mesh), self.device)
+        with sync_bn(group_of(self.mesh), state.model):
+            out = state.model(ears, mfccs, seq_len, train=True,
+                              generator=generator)
         return total_loss(state.model, self.loss_fn, out, coeff, seq_len)
 
     def train_step(self, state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        """One optimizer step; returns (state, {"loss", "grad_norm"}) with
-        device scalars (grad_norm before clipping)."""
+        """One optimizer step on the global ``batch``; returns (state,
+        {"loss", "grad_norm"}) with device scalars: the loss averaged over
+        the ranks, the norm of the averaged gradient before clipping."""
         loss = self.loss(state, batch, generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grad_norm = global_norm(p.grad for p in state.model.parameters()
-                                if p.grad is not None)
+        params = list(state.model.parameters())
+        all_reduce_grads_(params, group_of(self.mesh))
+        grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, pmean_metric({"loss": loss.detach(),
+                                    "grad_norm": grad_norm}, self.mesh)
+
+    def train_step_local(self, state: TrainState, local_batch,
+                         generator: Optional[torch.Generator] = None):
+        """The step fed per rank: ``local_batch`` holds only this rank's
+        ``local_batch_rows(global_batch, mesh)`` rows (JAX
+        ``bfmnet_trainer.py:105-112``).  Alone it is :meth:`train_step`."""
+        return self.train_step(
+            state, shard_batch_local(local_batch, self.mesh), generator)
 
     def train_multi_step(self, state: TrainState, batches,
                          generator: Optional[torch.Generator] = None):
@@ -118,8 +156,12 @@ class BFMNetTrainer:
         ``train_multi_step``; eval and checkpoint fire when a call crosses
         an interval, at most once per call (K larger than an interval
         coarsens that cadence, with a warning).  K = 1 is the reference
-        loop exactly."""
-        generator = torch.Generator(self.device).manual_seed(seed)
+        loop exactly.  Under a mesh each ``batches`` item is a global
+        batch (or ``prefetch_to_device(mesh=...)``'s rows of one); rank 0
+        alone logs and evaluates."""
+        main = self.mesh is None or self.mesh.is_main
+        generator = rank_generator(
+            seed, 0 if self.mesh is None else self.mesh.rank, self.device)
         tcfg = self.cfg.bfmnet.training
         k = max(1, int(steps_per_call))
         if k > 1:
@@ -139,7 +181,7 @@ class BFMNetTrainer:
                 state, [next(batches) for _ in range(kk)], generator)
             done += kk
             step = state.step
-            if logger is not None:
+            if logger is not None and main:
                 keys = list(stacked)
                 vals = torch.stack([stacked[n].float() for n in keys],
                                    1).cpu().numpy()
@@ -149,12 +191,15 @@ class BFMNetTrainer:
             if eval_batches is not None and (
                     step // tcfg.eval_interval
                     > (step - kk) // tcfg.eval_interval):
-                eval_batch = next(eval_batches)
-                eval_loss, eval_out = self.eval_loss(state, eval_batch)
-                if logger is not None:
-                    logger.log(step, eval_loss=eval_loss)
-                if eval_hook is not None:
-                    eval_hook(step, state, eval_batch, eval_out)
+                if main:
+                    eval_batch = next(eval_batches)
+                    eval_loss, eval_out = self.eval_loss(state, eval_batch)
+                    if logger is not None:
+                        logger.log(step, eval_loss=eval_loss)
+                    if eval_hook is not None:
+                        eval_hook(step, state, eval_batch, eval_out)
+                if self.mesh is not None:
+                    self.mesh.barrier()
             if ckpt is not None and step > 0 and (
                     step // ckpt.save_interval
                     > (step - kk) // ckpt.save_interval):
@@ -172,6 +217,7 @@ def main(argv=None):
                                                    prefetch_to_device)
     from voicepuppet_torch.face3d import morph
     from voicepuppet_torch.face3d.bfm import load_bfm, synthetic_bfm
+    from voicepuppet_torch.parallel.mesh import make_mesh
     from voicepuppet_torch.train.checkpoint import CheckpointManager
     from voicepuppet_torch.train.metrics import (MetricsLogger,
                                                  add_profiler_args,
@@ -188,12 +234,14 @@ def main(argv=None):
                         "the device and fetched once; the same math per "
                         "step and the same dropout stream")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu")
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                        "or cpu")
     add_profiler_args(p)
     args = p.parse_args(argv)
 
     cfg = load_config(args.config_path)
-    device = torch.device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     face_model = (load_bfm(cfg.model_dir)
                   if os.path.exists(os.path.join(cfg.model_dir,
                                                  "BFM_model_front.mat"))
@@ -201,12 +249,12 @@ def main(argv=None):
     mouth_path = os.path.join(cfg.model_dir, "mouth_idx.npy")
     mouth_idx = np.load(mouth_path) if os.path.exists(mouth_path) else None
 
-    trainer = BFMNetTrainer(cfg, face_model, mouth_idx, device=device)
+    trainer = BFMNetTrainer(cfg, face_model, mouth_idx, mesh=mesh)
     tcfg = cfg.bfmnet.training
     ckpt = CheckpointManager(args.ckpt_dir, tcfg.max_to_keep,
-                             tcfg.save_interval)
+                             tcfg.save_interval, mesh=mesh)
     state = ckpt.restore(trainer.init_state())
-    logger = MetricsLogger(args.log_dir, "bfmnet")
+    logger = MetricsLogger(args.log_dir, "bfmnet") if mesh.is_main else None
     batcher = BFMNetBatcher(
         cfg, FileSource(cfg.dataset.train_dataset_path, cfg),
         batch_size=trainer.global_batch, device=device)
@@ -223,11 +271,12 @@ def main(argv=None):
                            eval_out[0].cpu().numpy(), fm)
 
     steps = args.steps if args.steps is not None else tcfg.epochs
-    trainer.fit(state, prefetch_to_device(iter(batcher), device), steps,
-                iter(eval_batcher), logger, ckpt, eval_hook=eval_hook,
+    trainer.fit(state, prefetch_to_device(iter(batcher), device, mesh=mesh),
+                steps, iter(eval_batcher), logger, ckpt, eval_hook=eval_hook,
                 steps_per_call=args.steps_per_call,
-                profiler=profiler_from_args(args))
-    logger.close()
+                profiler=profiler_from_args(args) if mesh.is_main else None)
+    if logger is not None:
+        logger.close()
 
 
 if __name__ == "__main__":

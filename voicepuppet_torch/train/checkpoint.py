@@ -24,12 +24,17 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 class CheckpointManager:
+    """``mesh`` (a ``parallel.mesh.DataGroup``): under data parallelism
+    rank 0 alone writes, and every rank waits for it at a barrier; every
+    rank restores the same file."""
+
     def __init__(self, directory: str, max_to_keep: int = 10,
-                 save_interval: int = 5000):
+                 save_interval: int = 5000, mesh=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval = save_interval
+        self.mesh = mesh
 
     def steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(
@@ -45,12 +50,15 @@ class CheckpointManager:
     def save(self, step: int, state: Any):
         """Write ``ckpt_<step>.pt`` (through a temporary name, so a crash
         leaves no partial file under a checkpoint's name) and drop all but
-        the newest ``max_to_keep``."""
-        tmp = self.path(step) + ".tmp"
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, self.path(step))
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        the newest ``max_to_keep``; on rank 0 alone under a mesh."""
+        if self.mesh is None or self.mesh.is_main:
+            tmp = self.path(step) + ".tmp"
+            torch.save(state.state_dict(), tmp)
+            os.replace(tmp, self.path(step))
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
         """The saved dict at ``step`` (default: the latest), on the CPU, or

@@ -1,5 +1,5 @@
-"""PixRefer GAN trainer on one device (port of
-``voicepuppet_tpu/train/pixrefer_trainer.py``:50-407; ref:
+"""PixRefer GAN trainer, data-parallel over a ``parallel.mesh.DataGroup``
+(port of ``voicepuppet_tpu/train/pixrefer_trainer.py``:50-407; ref:
 voicepuppet/pixrefer/pixrefer.py:356-412, train_pixrefer.py:112-153).
 
 One step: the generator runs once; D updates first on that output taken
@@ -20,9 +20,17 @@ heads stay float32; ``perceptual_dtype`` sets the frozen VGG trunk's conv
 dtype alone (default: ``train_dtype``).  Float32 convs and matmuls run in
 full float32 (TF32 off).
 
+Data parallelism (``mesh``): as the BFMNet trainer's.  Each rank runs G
+and D on its rows with sync-BN (every G and D call is a collective, in
+the same order on every rank), back-propagates its mean D loss, then
+averages D's gradients alone before D's step; likewise G's after G's
+backward.  ``infer`` (the image summary, on rank 0 alone) takes local
+moments, as the JAX ``gen_eval`` with ``axis_name=None``.
+
 CLI: ``python -m voicepuppet_torch.train.pixrefer_trainer --config_path
 <yml> [--steps N] [--dtype float32|bfloat16] [--perceptual_dtype ...]
-[--steps_per_call K] [--device cuda|cpu]``.
+[--steps_per_call K] [--device cuda|cpu]``; on N cards under
+``torchrun --nproc_per_node N``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,11 @@ from voicepuppet_torch.audio.frontend import full_fp32_matmuls
 from voicepuppet_torch.config import Config
 from voicepuppet_torch.models import pixrefer as px
 from voicepuppet_torch.models import vgg as vgg_mod
+from voicepuppet_torch.models.layers import sync_bn
+from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
+                                             group_of, mesh_global_batch,
+                                             pmean_metric, replicate,
+                                             shard_batch, shard_batch_local)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.optim import gan_optimizer
 from voicepuppet_torch.train.state import GANTrainState
@@ -65,18 +78,23 @@ class PixReferTrainer:
     """``g_tx`` / ``d_tx``: factories, parameters -> optimizer (default:
     ``gan_optimizer``); the parity tests pass SGD.  ``vgg_weights_path``:
     a converted ``.npz`` or the released slim checkpoint; without one the
-    trunk is drawn from ``torch.Generator().manual_seed(vgg_seed)``."""
+    trunk is drawn from ``torch.Generator().manual_seed(vgg_seed)``.
+    ``mesh``: the data group (None: this process alone, on ``device``)."""
 
     def __init__(self, cfg: Config, vgg_weights_path: Optional[str] = None,
                  train_dtype: torch.dtype = torch.float32,
                  perceptual_dtype: Optional[torch.dtype] = None,
-                 g_tx=None, d_tx=None, device="cuda", vgg_seed: int = 17):
+                 g_tx=None, d_tx=None, device="cuda", vgg_seed: int = 17,
+                 mesh: Optional[DataGroup] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         full_fp32_matmuls()
         self.train_dtype = train_dtype
         self.perceptual_dtype = perceptual_dtype or train_dtype
-        self.global_batch = cfg.pixrefer.batch_size
+        # the reference's batch 2 (train_pixrefer.py:36) rounded up
+        self.global_batch = mesh_global_batch(cfg.pixrefer.batch_size, mesh)
         self.g_tx = g_tx if g_tx is not None else gan_optimizer(
             cfg.pixrefer.training)
         self.d_tx = d_tx if d_tx is not None else gan_optimizer(
@@ -110,18 +128,31 @@ class PixReferTrainer:
                                                   dtype=self.train_dtype), g)
         gen.to(self.device)
         disc.to(self.device)
+        replicate([gen, disc], self.mesh)
         return GANTrainState(gen, disc, self.g_tx(gen.parameters()),
                              self.d_tx(disc.parameters()))
 
     # ---- the D-then-G step ----
     def train_step(self, state: GANTrainState, batch,
                    marks: Optional[List] = None):
-        """One D update then one G update; returns (state, metrics of
-        device scalars).  ``marks``, a list (on the card), receives CUDA
-        events at the start, after D and after G."""
+        """One D update then one G update on the global ``batch`` (this
+        rank's rows of it); returns (state, metrics of device scalars,
+        averaged over the ranks).  ``marks``, a list (on the card),
+        receives CUDA events at the start, after D and after G."""
+        with sync_bn(group_of(self.mesh), state.gen, state.disc):
+            return self._step(state, batch, marks)
+
+    def train_step_local(self, state: GANTrainState, local_batch,
+                         marks: Optional[List] = None):
+        """The step fed per rank with this rank's rows alone."""
+        return self.train_step(
+            state, shard_batch_local(local_batch, self.mesh), marks)
+
+    def _step(self, state: GANTrainState, batch, marks):
         cfg = self.cfg.pixrefer
-        inputs, fg_inputs, targets, masks = batch_to_device(batch,
-                                                            self.device)
+        group = group_of(self.mesh)
+        inputs, fg_inputs, targets, masks = batch_to_device(
+            shard_batch(batch, self.mesh), self.device)
         _mark(marks)
         inputs_p = px.preprocess(inputs)
         fg_p = px.preprocess(fg_inputs)
@@ -136,6 +167,7 @@ class PixReferTrainer:
                                        disc(inputs_p[..., 3:], fake))
         state.d_optimizer.zero_grad(set_to_none=True)
         d_loss.backward(inputs=list(disc.parameters()))
+        all_reduce_grads_(disc.parameters(), group)
         state.d_optimizer.step()
         _mark(marks)
 
@@ -146,13 +178,15 @@ class PixReferTrainer:
             masks, perc, cfg.gan_weight, cfg.l1_weight)
         state.g_optimizer.zero_grad(set_to_none=True)
         g_loss.backward(inputs=list(gen.parameters()))
+        all_reduce_grads_(gen.parameters(), group)
         state.g_optimizer.step()
         _mark(marks)
         state.step += 2
         metrics = {"discrim_loss": d_loss, "gen_loss": g_loss,
                    "gen_loss_GAN": gan_t, "gen_loss_L1": l1_t,
                    "perceptual": perc}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, pmean_metric({k: v.detach()
+                                    for k, v in metrics.items()}, self.mesh)
 
     def train_multi_step(self, state: GANTrainState, batches):
         """K sequential D+G steps with no host sync; every metric gains a
@@ -186,7 +220,9 @@ class PixReferTrainer:
         """``steps_per_call`` K runs K D+G steps per call; the image
         summary and the checkpoint fire when one of the call's step values
         (stride 2) is an exact multiple of their interval, at most once
-        per call.  K = 1 is the reference loop exactly."""
+        per call.  K = 1 is the reference loop exactly.  Under a mesh,
+        rank 0 alone logs and renders the summary."""
+        main = self.mesh is None or self.mesh.is_main
         tcfg = self.cfg.pixrefer.training
         k = max(1, int(steps_per_call))
         if k > 1:
@@ -206,7 +242,7 @@ class PixReferTrainer:
             state, stacked = self.train_multi_step(state, got)
             done += kk
             step = state.step
-            if logger is not None:
+            if logger is not None and main:
                 keys = list(stacked)
                 vals = torch.stack([stacked[n].float() for n in keys],
                                    1).cpu().numpy()
@@ -238,6 +274,8 @@ def main(argv=None):
                                                    FileSource,
                                                    PixReferBatcher,
                                                    prefetch_to_device)
+    from voicepuppet_torch.parallel.mesh import (local_batch_rows,
+                                                 make_mesh)
     from voicepuppet_torch.train.checkpoint import CheckpointManager
     from voicepuppet_torch.train.metrics import (MetricsLogger,
                                                  add_profiler_args,
@@ -259,37 +297,45 @@ def main(argv=None):
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="run K D+G steps per call with their metrics kept "
                         "on the device and fetched once")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                        "or cpu")
     add_profiler_args(p)
     args = p.parse_args(argv)
 
     cfg = load_config(args.config_path)
-    device = torch.device(args.device)
+    mesh = make_mesh(args.device)
     vgg_path = os.path.join(cfg.model_dir, "vgg16_weights.npz")
     trainer = PixReferTrainer(
         cfg, vgg_weights_path=vgg_path if os.path.exists(vgg_path) else None,
         train_dtype=DTYPES[args.dtype],
-        perceptual_dtype=DTYPES.get(args.perceptual_dtype), device=device)
+        perceptual_dtype=DTYPES.get(args.perceptual_dtype), mesh=mesh)
     tcfg = cfg.pixrefer.training
     ckpt = CheckpointManager(args.ckpt_dir, tcfg.max_to_keep,
-                             tcfg.save_interval)
+                             tcfg.save_interval, mesh=mesh)
     state = ckpt.restore(trainer.init_state())
-    logger = MetricsLogger(args.log_dir, "pixrefer")
+    logger = (MetricsLogger(args.log_dir, "pixrefer") if mesh.is_main
+              else None)
     src = FileSource(cfg.dataset.train_dataset_path, cfg, load_images=True)
     steps = args.steps if args.steps is not None else tcfg.epochs
     # JPEG decode + crop augmentation in worker threads, overlapping the
-    # device step (ref: tf.data num_parallel_calls=4, generator.py:502)
+    # device step (ref: tf.data num_parallel_calls=4, generator.py:502);
+    # each rank decodes its own rows, from seeds of its own
+    rows = local_batch_rows(trainer.global_batch, mesh)
     bg = BackgroundBatches(
-        lambda i: iter(PixReferBatcher(cfg, src, seed=i,
-                                       batch_size=trainer.global_batch)),
+        lambda i: iter(PixReferBatcher(cfg, src, seed=4 * mesh.rank + i,
+                                       batch_size=rows)),
         num_workers=4)
     try:
-        trainer.fit(state, prefetch_to_device(bg, device), steps, logger,
-                    ckpt, steps_per_call=args.steps_per_call,
-                    profiler=profiler_from_args(args))
+        trainer.fit(state, (shard_batch_local(b, mesh) for b in
+                            prefetch_to_device(bg, mesh.device)),
+                    steps, logger, ckpt, steps_per_call=args.steps_per_call,
+                    profiler=profiler_from_args(args) if mesh.is_main
+                    else None)
     finally:
         bg.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

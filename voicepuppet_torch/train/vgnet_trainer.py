@@ -1,4 +1,4 @@
-"""VGNet trainer on one device (port of
+"""VGNet trainer, data-parallel over a ``parallel.mesh.DataGroup`` (port of
 ``voicepuppet_tpu/train/vgnet_trainer.py``:29-223; ref:
 voicepuppet/atvgnet/train_vgnet.py:131-193).
 
@@ -15,9 +15,16 @@ Adam with the config's schedule and clip.  The batch is
 [B,T,S,S,1], img_seq [B,T,S,S,3], example_landmark [B,136], example_img
 [B,S,S,3], seq_len [B]).
 
+Data parallelism (``mesh``): both phases run every forward with sync-BN
+(the D step's G under ``no_grad`` too, as in the JAX step,
+``vgnet_trainer.py:102-122``), so every rank issues the same
+collectives in the same order; each phase averages the gradients of the
+network it updates alone.  ``generate`` takes the running moments.
+
 CLI: ``python -m voicepuppet_torch.train.vgnet_trainer --config_path
 <yml> [--steps N] [--alternative K] [--device cuda|cpu]``; the landmark
-PCA assets resolve as the ATNet trainer's.
+PCA assets resolve as the ATNet trainer's; on N cards under ``torchrun
+--nproc_per_node N``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,11 @@ import torch
 from voicepuppet_torch.audio.frontend import full_fp32_matmuls
 from voicepuppet_torch.config import Config
 from voicepuppet_torch.models import vgnet as vg
+from voicepuppet_torch.models.layers import sync_bn
+from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
+                                             group_of, mesh_global_batch,
+                                             pmean_metric, replicate,
+                                             shard_batch, shard_batch_local)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.loop import StepLoop
 from voicepuppet_torch.train.optim import reference_adam
@@ -37,15 +49,19 @@ from voicepuppet_torch.train.state import GANTrainState
 
 class VGNetTrainer(StepLoop):
     """``g_tx`` / ``d_tx``: factories, parameters -> optimizer (default:
-    the reference Adam); the parity tests pass SGD."""
+    the reference Adam); the parity tests pass SGD.  ``mesh``: the data
+    group (None: this process alone, on ``device``)."""
 
     def __init__(self, cfg: Config, alternative: int = 1000, g_tx=None,
-                 d_tx=None, device="cuda"):
+                 d_tx=None, device="cuda", mesh: Optional[DataGroup] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         full_fp32_matmuls()
         self.alternative = alternative
-        self.global_batch = cfg.vgnet.batch_size
+        # the reference's batch 4 (train_vgnet.py:41) rounded up
+        self.global_batch = mesh_global_batch(cfg.vgnet.batch_size, mesh)
         t = cfg.vgnet.training
         adam = lambda: reference_adam(t.learning_rate, t.decay_steps,
                                       t.decay_rate,
@@ -61,6 +77,7 @@ class VGNetTrainer(StepLoop):
         disc = vg.init_vgnet_(vg.VGNetDiscriminator(self.cfg.vgnet), g)
         gen.to(self.device)
         disc.to(self.device)
+        replicate([gen, disc], self.mesh)
         return GANTrainState(gen, disc, self.g_tx(gen.parameters()),
                              self.d_tx(disc.parameters()))
 
@@ -72,7 +89,7 @@ class VGNetTrainer(StepLoop):
     def d_step(self, state: GANTrainState, batch,
                generator: Optional[torch.Generator] = None):
         lmk_seq, _mask_seq, img_seq, ex_lmk, ex_img, seq_len = \
-            batch_to_device(batch, self.device)
+            batch_to_device(shard_batch(batch, self.mesh), self.device)
         with torch.no_grad():
             fake = state.gen(ex_img, lmk_seq, ex_lmk, seq_len, train=True)[0]
         rs, rl = state.disc(img_seq, ex_lmk, seq_len, train=True,
@@ -82,14 +99,16 @@ class VGNetTrainer(StepLoop):
         loss = vg.vgnet_discriminator_loss(rs, rl, fs, fl, lmk_seq, seq_len)
         state.d_optimizer.zero_grad(set_to_none=True)
         loss.backward(inputs=list(state.disc.parameters()))
+        all_reduce_grads_(state.disc.parameters(), group_of(self.mesh))
         state.d_optimizer.step()
         state.step += 1
-        return state, {"discriminator_loss": loss.detach()}
+        return state, pmean_metric({"discriminator_loss": loss.detach()},
+                                   self.mesh)
 
     def g_step(self, state: GANTrainState, batch,
                generator: Optional[torch.Generator] = None):
         lmk_seq, mask_seq, img_seq, ex_lmk, ex_img, seq_len = \
-            batch_to_device(batch, self.device)
+            batch_to_device(shard_batch(batch, self.mesh), self.device)
         fake, att, _ = state.gen(ex_img, lmk_seq, ex_lmk, seq_len,
                                  train=True)
         fs, fl = state.disc(fake, ex_lmk, seq_len, train=True,
@@ -98,16 +117,26 @@ class VGNetTrainer(StepLoop):
             fs, fl, fake, att, lmk_seq, mask_seq, img_seq, seq_len)
         state.g_optimizer.zero_grad(set_to_none=True)
         loss.backward(inputs=list(state.gen.parameters()))
+        all_reduce_grads_(state.gen.parameters(), group_of(self.mesh))
         state.g_optimizer.step()
         state.step += 1
-        return state, {"generator_loss": loss.detach(),
-                       "bce_loss": bce.detach(), "pix_loss": pix.detach()}
+        return state, pmean_metric(
+            {"generator_loss": loss.detach(), "bce_loss": bce.detach(),
+             "pix_loss": pix.detach()}, self.mesh)
 
     def train_step(self, state: GANTrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        """The step of the phase ``state.step`` falls in."""
+        """The step of the phase ``state.step`` falls in, on the global
+        ``batch`` (this rank's rows of it) with sync-BN."""
         step = self.d_step if self.is_d_phase(state.step) else self.g_step
-        return step(state, batch, generator)
+        with sync_bn(group_of(self.mesh), state.gen, state.disc):
+            return step(state, batch, generator)
+
+    def train_step_local(self, state: GANTrainState, local_batch,
+                         generator: Optional[torch.Generator] = None):
+        """The step fed per rank with this rank's rows alone."""
+        return self.train_step(
+            state, shard_batch_local(local_batch, self.mesh), generator)
 
     @torch.no_grad()
     def generate(self, state: GANTrainState, example_img, landmark_seq,
@@ -125,6 +154,7 @@ def main(argv=None):
     from voicepuppet_torch.data.generators import (FileSource, VGNetBatcher,
                                                    prefetch_to_device)
     from voicepuppet_torch.train.atnet_trainer import load_pca_assets
+    from voicepuppet_torch.parallel.mesh import make_mesh
     from voicepuppet_torch.train.checkpoint import CheckpointManager
     from voicepuppet_torch.train.metrics import (MetricsLogger,
                                                  add_profiler_args,
@@ -137,20 +167,22 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--alternative", type=int, default=1000,
                    help="D/G phase length (train_vgnet.py:133)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                        "or cpu")
     add_profiler_args(p)
     args = p.parse_args(argv)
 
     cfg = load_config(args.config_path)
-    device = torch.device(args.device)
+    mesh = make_mesh(args.device)
     pca_mean, pca_component = load_pca_assets(cfg.model_dir,
                                               cfg.vgnet.landmark_size)
-    trainer = VGNetTrainer(cfg, alternative=args.alternative, device=device)
+    trainer = VGNetTrainer(cfg, alternative=args.alternative, mesh=mesh)
     tcfg = cfg.vgnet.training
     ckpt = CheckpointManager(args.ckpt_dir, tcfg.max_to_keep,
-                             tcfg.save_interval)
+                             tcfg.save_interval, mesh=mesh)
     state = ckpt.restore(trainer.init_state())
-    logger = MetricsLogger(args.log_dir, "vgnet")
+    logger = MetricsLogger(args.log_dir, "vgnet") if mesh.is_main else None
     # the streams take the [136, K] transpose of the component
     batcher = VGNetBatcher(cfg, FileSource(cfg.dataset.train_dataset_path,
                                            cfg, load_images=True),
@@ -158,10 +190,14 @@ def main(argv=None):
                            batch_size=trainer.global_batch)
     steps = args.steps if args.steps is not None else tcfg.epochs
     try:
-        trainer.fit(state, prefetch_to_device(iter(batcher), device), steps,
-                    logger, ckpt, profiler=profiler_from_args(args))
+        trainer.fit(state, prefetch_to_device(iter(batcher), mesh.device,
+                                              mesh=mesh),
+                    steps, logger, ckpt,
+                    profiler=profiler_from_args(args) if mesh.is_main
+                    else None)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":
