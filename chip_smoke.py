@@ -152,16 +152,16 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         Adam steps are bit-equal to the plain step's (cuDNN
                         deterministic, the plain step repeating itself as
                         the control); two spawned ranks sharing the card
-                        over gloo: the averaged SGD gradients against the
-                        single-process step on the global batch within the
-                        CPU tests' bands (the head's 1e-4 over its leaves
-                        together: L1 sign changes move a leaf's max), or 3x
-                        the single step's reading with cuDNN off,
-                        half-batch kernels or float64 BN moments where that
-                        is larger (twice
-                        the average must fall outside), the ranks'
-                        parameters and buffers identical after 3 Adam
-                        steps; ms per step.
+                        over gloo: the averaged SGD gradients, every leaky
+                        ReLU's and L1 term's kink frozen to the
+                        single-process global-batch step's, within the CPU
+                        tests' bands of that step's (BFMNet's zero-gradient
+                        BN offsets by |g| under 1e-6 of the largest), twice
+                        the average and a rank's own gradients outside
+                        them; with the kinks free, the head outside only
+                        where an input crossed a kink; the ranks'
+                        parameters and buffers identical after a warm-up
+                        and 3 timed Adam steps; ms per step.
  23. prep               prepare_dataset.Schedule steps 1, 5 (256²) and 6
                         (512x1536 panels, the segmentation and matting nets
                         at random init on the card) over a 40-frame clip of
@@ -1832,10 +1832,20 @@ def phase_zoo_card_vs_cpu(dev, card):
 DP_STEPS = 3
 # the CPU tests' bands (tests/test_torch_train_dp*.py): a leaf after the
 # batch-norm trunk within 1e-4 of its max |g|; a trunk leaf within 0.15
-# and the trunk within 2e-2 in relative L2; a true-zero leaf by |g|
+# and the trunk within 2e-2 in relative L2; a leaf whose true gradient is
+# zero (|g| < 1e-4 on the reference) held by |g| < 1e-4
 DP_HEAD, DP_TRUNK, DP_TRUNK_L2, DP_NULL = 1e-4, 0.15, 2e-2, 1e-4
-DP_READING_FACTOR = 3.0
+# BFMNet's inverted residuals' projection and shortcut BN offsets have a
+# true gradient of zero (no activation follows them; every path from them
+# runs through 1x1 convs, max pools and sums into a later train-mode BN).
+# At full width their float noise reads up to 8.4e-4 on an H100 (single
+# step and two ranks; experiments/probe_dp_head.py), over DP_NULL, yet
+# 5e-8 of the model's largest |g|: these are held by |g| below DP_NULL_REL
+# of it, a band that must stay under every other leaf's max |g|
+DP_NULL_REL = 1e-6
 DP_TRUNKS = {"bfmnet": "mfcc_encoder.MfccNet_0.", "pixrefer": "gen."}
+DP_TRUE_ZERO = {"bfmnet": (r"^mfcc_encoder\.MfccNet_0\.InvertedResidual_"
+                           r"\d+\.TFBatchNorm_[23]\.bias$")}
 DP_BFM_LENS = (24, 20, 24, 18, 24, 24, 22, 24)
 
 
@@ -1900,90 +1910,133 @@ def dp_grads(modules):
             if p.grad is not None}
 
 
-def dp_bands(got, want, trunk):
-    """(head relative L2, worst trunk leaf, trunk relative L2, worst
-    true-zero |g|, worst head leaf, its name) of gradients ``got``
-    against ``want``: a leaf's error is over its max |g|."""
+class frozen_kinks:
+    """Within the block every ``F.leaky_relu`` and ``torch.abs`` (the L1
+    losses) records the sign of its input (``masks`` None: into
+    ``self.masks``, returning what the function returns), or takes that
+    sign from ``masks``, each call's in turn: the block of rows of rank
+    ``rank`` (a call's leading axis is batch-major, so rank r's rows are
+    the r-th block of the recorded run's).  Replayed, the network and loss
+    are the recorded run's function piece for piece: an input within float
+    noise of a kink keeps the recorded run's slope.  That is the whole of
+    BFMNet's two-rank head gap on the card (experiments/probe_dp_head.py):
+    one input of the decoder's first leaky ReLU, within float noise of 0,
+    took the other slope."""
+
+    def __init__(self, masks=None, rank=0):
+        self.replay = masks is not None
+        self.masks = list(masks) if self.replay else []
+        self.rank = rank
+
+    def _sign(self, x):
+        """The recorded sign of ``x``'s rows (int8; 0 where x was 0)."""
+        import torch
+        if not self.replay:
+            s = torch.sign(x).to(torch.int8)
+            self.masks.append(s.cpu())
+            return s
+        i = len(self.used)
+        if i >= len(self.masks):
+            raise AssertionError("frozen_kinks: more calls than recorded")
+        self.used.append(i)
+        m = self.masks[i]
+        n = x.shape[0]
+        if m.shape[1:] != x.shape[1:] or m.shape[0] < (self.rank + 1) * n:
+            raise AssertionError(f"frozen_kinks: recorded {tuple(m.shape)}, "
+                                 f"replayed on {tuple(x.shape)}")
+        return m[self.rank * n:(self.rank + 1) * n].to(x.device)
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        self.saved = (F.leaky_relu, torch.abs)
+        self.used = []
+        leaky, absolute = self.saved
+
+        def act(x, negative_slope=0.01, inplace=False):
+            s = self._sign(x)
+            if not self.replay:
+                return leaky(x, negative_slope)
+            return torch.where(s > 0, x, x * negative_slope)
+
+        def l1(x, *a, **k):
+            s = self._sign(x)
+            return absolute(x, *a, **k) if not self.replay else s * x
+        F.leaky_relu, torch.abs = act, l1
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.nn.functional as F
+        F.leaky_relu, torch.abs = self.saved
+        if self.replay and not exc[0] and len(self.used) != len(self.masks):
+            raise AssertionError(f"frozen_kinks: {len(self.used)} calls, "
+                                 f"{len(self.masks)} recorded")
+
+    def flips(self, masks):
+        """Inputs of this (recording) run on another side of a kink than
+        in ``masks``, this rank's rows of them."""
+        out = 0
+        for a, b in zip(self.masks, masks):
+            n = a.shape[0]
+            out += int((a != b[self.rank * n:(self.rank + 1) * n]).sum())
+        return out
+
+
+def dp_bands(got, want, name):
+    """The readings of gradients ``got`` against ``want``: the worst head
+    leaf (over its max |g|) and its name, the head's relative L2, the
+    worst trunk leaf and the trunk's relative L2, the largest |g| of a
+    leaf whose true gradient is zero, and that leaf's band (DP_NULL, or
+    DP_NULL_REL of the largest |g| for the known zeros), and the smallest
+    max |g| of the other leaves."""
+    import re
     import torch
-    head = tr_ = null = 0.0
-    worst = ""
+    trunk = DP_TRUNKS[name]
+    zero = re.compile(DP_TRUE_ZERO.get(name, "^$"))
+    top = max(float(w.abs().max()) for w in want.values())
+    r = {"head": 0.0, "head_name": "", "trunk": 0.0, "null": 0.0,
+         "null_band": DP_NULL, "smallest": top}
     diffs = {True: [], False: []}
     refs = {True: [], False: []}
     for k, w in want.items():
         g = got[k]
         scale = float(w.abs().max())
-        if scale < DP_NULL:
-            null = max(null, float(g.abs().max()))
+        if scale < DP_NULL or zero.search(k):
+            band = DP_NULL_REL * top if zero.search(k) else DP_NULL
+            mag = float(g.abs().max())
+            if mag / band > r["null"] / r["null_band"]:
+                r["null"], r["null_band"] = mag, band
             continue
+        r["smallest"] = min(r["smallest"], scale)
         err = float((g - w).abs().max()) / scale
         in_trunk = k.startswith(trunk)
         diffs[in_trunk].append((g - w).reshape(-1))
         refs[in_trunk].append(w.reshape(-1))
         if in_trunk:
-            tr_ = max(tr_, err)
-        elif err > head:
-            head, worst = err, k
-    l2 = {t: (float(torch.cat(diffs[t]).norm() / torch.cat(refs[t]).norm())
-              if diffs[t] else 0.0) for t in (True, False)}
-    return l2[False], tr_, l2[True], null, head, worst
+            r["trunk"] = max(r["trunk"], err)
+        elif err > r["head"]:
+            r["head"], r["head_name"] = err, k
+    for t, key in ((False, "head_l2"), (True, "trunk_l2")):
+        r[key] = (float(torch.cat(diffs[t]).norm()
+                        / torch.cat(refs[t]).norm()) if diffs[t] else 0.0)
+    return r
 
 
-def dp_placed_bands(reading):
-    """Phase 22's bands on the card (head relative L2, trunk leaf, trunk
-    relative L2, true-zero |g|): the CPU tests' bands, the head's 1e-4
-    taken over the head's leaves together — at full width on the card
-    the forward's float noise (7.2e-6 of the output, the moments equal to
-    1e-7) crosses the L1 loss's sign changes and moves a head leaf's max
-    by 3.4e-4 (measured on one H100) — or DP_READING_FACTOR times the card's
-    own float-order noise of the single-process step where that is
-    larger:
-    the step with cuDNN off (PyTorch's own convs), with its convs and
-    GEMMs run per half batch (the kernels a rank launches), and with its
-    BN moments accumulated in float64 (as the synced moments are), each
-    against the step itself — the classes of difference that a rank's
-    half-batch kernels and the synced moments make."""
-    cpu = (DP_HEAD, DP_TRUNK, DP_TRUNK_L2, DP_NULL)
-    return tuple(max(c, DP_READING_FACTOR * r)
-                 for c, r in zip(cpu, reading[:4]))
+def dp_within(r, head=True):
+    """Within the CPU tests' bands (the head's too unless ``head`` is
+    off)."""
+    return ((r["head"] < DP_HEAD or not head) and r["trunk"] < DP_TRUNK
+            and r["trunk_l2"] < DP_TRUNK_L2 and r["null"] < r["null_band"]
+            < r["smallest"])
 
 
-class half_batch_kernels:
-    """Within the block (when ``on``), ``F.conv2d``, ``F.conv_transpose2d``
-    and ``F.linear`` run each half of their batch as a call of its own and
-    concatenate: the same rows through the kernels a rank of a two-rank
-    group launches (half the batch each)."""
-
-    NAMES = ("conv2d", "conv_transpose2d", "linear")
-
-    def __init__(self, on):
-        self.on = on
-
-    def __enter__(self):
-        import torch
-        import torch.nn.functional as F
-        if not self.on:
-            return
-        self.saved = {n: getattr(F, n) for n in self.NAMES}
-
-        def split(fn):
-            def run(x, *a, **k):
-                if x.dim() < 2 or x.shape[0] % 2:
-                    return fn(x, *a, **k)
-                h = x.shape[0] // 2
-                return torch.cat([fn(x[:h], *a, **k), fn(x[h:], *a, **k)])
-            return run
-        for n, fn in self.saved.items():
-            setattr(F, n, split(fn))
-
-    def __exit__(self, *exc):
-        import torch.nn.functional as F
-        if self.on:
-            for n, fn in self.saved.items():
-                setattr(F, n, fn)
-
-
-def dp_within(reading, bands):
-    return all(r < b for r, b in zip(reading[:4], bands))
+def dp_fmt(r):
+    return (f"head leaf {r['head']:.3g} ({r['head_name']}), head L2 "
+            f"{r['head_l2']:.3g}, trunk leaf {r['trunk']:.3g}, trunk L2 "
+            f"{r['trunk_l2']:.3g}, true-zero |g| {r['null']:.3g} (band "
+            f"{r['null_band']:.3g}; other leaves' max |g| >= "
+            f"{r['smallest']:.3g})")
 
 
 def digest(modules):
@@ -1997,31 +2050,64 @@ def digest(modules):
     return h.hexdigest()
 
 
+def dp_sgd_step(name, dev, mesh, batch, kinks):
+    """One SGD step (lr 1, dropout off) of phase 22's ``name`` under
+    ``kinks`` (a ``frozen_kinks``): the loss, the gradients after the
+    average and (under a mesh) each rank's own before it."""
+    import torch
+    tr, state, mods = dp_trainer(name, dev, mesh,
+                                 lambda p: torch.optim.SGD(p, lr=1.0),
+                                 dropout=False)
+    names = {id(p): k + n for k, m in mods.items()
+             for n, p in m.named_parameters()}
+    local = {}
+    module = sys.modules[type(tr).__module__]
+    real = module.all_reduce_grads_
+
+    def recording(params, group):
+        params = [p for p in params if p.grad is not None]
+        local.update({names[id(p)]: p.grad.detach().float().cpu().clone()
+                      for p in params})
+        real(params, group)
+    module.all_reduce_grads_ = recording
+    try:
+        with kinks:
+            _, metrics = dp_step(tr, state, batch, dp_generator(name, dev))
+    finally:
+        module.all_reduce_grads_ = real
+    return (float(next(iter(metrics.values()))), dp_grads(mods), local)
+
+
 def phase22_rank(mesh, name, single_path):
     """One rank of phase 22's two-rank group (gloo, both on the card):
     the SGD step's averaged gradients (dropout off) against the
-    single-process global-batch step's (``single_path``), then three Adam
-    steps (dropout on, each rank its own masks), timed, and the digest of
-    the parameters and buffers."""
+    single-process global-batch step's (``single_path``), with the leaky
+    ReLUs' and L1 terms' kinks frozen to the single step's and as they
+    fall; then one
+    warm-up and DP_STEPS timed Adam steps (dropout on, each rank its own
+    masks) and the digest of the parameters and buffers."""
     import numpy as np
     import torch
+    from voicepuppet_torch.parallel.mesh import shard_batch
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     dev = mesh.device
-    batch = dp_batch(name)
-    sgd = lambda params: torch.optim.SGD(params, lr=1.0)
-    tr, state, mods = dp_trainer(name, dev, mesh, sgd, dropout=False)
-    _, metrics = dp_step(tr, state, batch, dp_generator(name, dev,
-                                                        mesh.rank))
+    batch = shard_batch(dp_batch(name), mesh)
     want = torch.load(single_path, weights_only=True)
-    got = dp_grads(mods)
-    bands = dp_bands(got, want["grads"], DP_TRUNKS[name])
-    twice = dp_bands({k: 2 * v for k, v in got.items()}, want["grads"],
-                     DP_TRUNKS[name])
-    loss = float(next(iter(metrics.values())))
-    del tr, state, mods
+    out = {"want_loss": want["loss"]}
+    frozen = frozen_kinks(want["masks"], mesh.rank)
+    out["loss"], got, local = dp_sgd_step(name, dev, mesh, batch, frozen)
+    out["bands"] = dp_bands(got, want["grads"], name)
+    out["twice"] = dp_bands({k: 2 * v for k, v in got.items()},
+                            want["grads"], name)
+    out["no_average"] = dp_bands(local, want["grads"], name)
+    free = frozen_kinks(rank=mesh.rank)
+    _, got, _ = dp_sgd_step(name, dev, mesh, batch, free)
+    out["free"] = dp_bands(got, want["grads"], name)
+    out["flips"] = free.flips(want["masks"])
     tr, state, mods = dp_trainer(name, dev, mesh)
     gen = dp_generator(name, dev, mesh.rank)
+    dp_step(tr, state, batch, gen)
     ms = []
     for _ in range(DP_STEPS):
         torch.cuda.synchronize()
@@ -2029,10 +2115,9 @@ def phase22_rank(mesh, name, single_path):
         dp_step(tr, state, batch, gen)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return {"bands": bands, "twice": twice, "loss": loss,
-            "want_loss": want["loss"],
-            "digest": digest(mods), "ms": ms, "step": state.step,
-            "finite": bool(np.isfinite(loss))}
+    out.update(digest=digest(mods), ms=ms, step=state.step,
+               finite=bool(np.isfinite(out["loss"])))
+    return out
 
 
 def phase_dp(dev, card, work):
@@ -2041,27 +2126,19 @@ def phase_dp(dev, card, work):
     3 Adam steps bit-equal to the plain step, after a control that the
     plain step repeats itself bit for bit (cuDNN deterministic); (2) two
     spawned ranks sharing the card over gloo: the SGD step's averaged
-    gradients against the single-process global-batch step's within
-    ``dp_placed_bands`` (the CPU tests' bands, the head's over its leaves
-    together, or 3x the single step's
-    own float-order noise, with cuDNN off, half-batch kernels or float64
-    BN moments, where that is larger), twice
-    the average outside them, then 3 Adam steps after which both ranks'
-    digests of parameters and buffers agree; ms per step of each
-    form."""
+    gradients, with every leaky ReLU's and L1 term's kink frozen to the
+    single-process global-batch step's (``frozen_kinks``), within the CPU
+    tests' bands of that step's, and twice the average and a rank's own gradients
+    outside them; the same step with the kinks free within them too, or
+    its head outside them only where an input crossed a kink; then, after
+    a warm-up step, 3 timed Adam steps, after which both ranks' digests
+    of parameters and buffers agree; ms per step of each form."""
     import torch
     import torch.distributed as dist
-    from voicepuppet_torch.models import layers
-    from voicepuppet_torch.parallel.mesh import make_mesh
+    from voicepuppet_torch.parallel.mesh import make_mesh, shard_batch
     from voicepuppet_torch.parallel.spawn import run_ranks
+    work = os.path.abspath(work)
     os.makedirs(work, exist_ok=True)
-    plain_moments = layers.batch_moments
-
-    def moments64(xf, group=None):
-        red = (0,) + tuple(range(2, xf.dim()))
-        var, mean = torch.var_mean(xf.double(), dim=red, correction=0)
-        return mean.float(), var.float()
-
     saved = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
@@ -2073,10 +2150,10 @@ def phase_dp(dev, card, work):
         if (mesh.world, mesh.group is None) != (1, False):
             raise AssertionError(f"world-1 NCCL group: {mesh}")
         for name in ("bfmnet", "pixrefer"):
-            batch = dp_batch(name)
             per_step, times = {}, {}
             for label, m in (("plain", None), ("plain again", None),
                              ("world 1", mesh)):
+                batch = shard_batch(dp_batch(name), m)
                 tr, state, mods = dp_trainer(name, dev, m)
                 gen = dp_generator(name, dev)
                 sds = []
@@ -2111,31 +2188,12 @@ def phase_dp(dev, card, work):
     finally:
         dist.destroy_process_group()
     for name in ("bfmnet", "pixrefer"):
-        batch = dp_batch(name)
-        runs = []
-        for variant in ("plain", "cudnn off", "float64 moments",
-                        "half-batch kernels"):
-            torch.backends.cudnn.enabled = variant != "cudnn off"
-            layers.batch_moments = (moments64 if variant == "float64 moments"
-                                    else plain_moments)
-            tr, state, mods = dp_trainer(
-                name, dev, None, lambda p: torch.optim.SGD(p, lr=1.0),
-                dropout=False)
-            with half_batch_kernels(variant == "half-batch kernels"):
-                _, metrics = dp_step(tr, state, batch,
-                                     dp_generator(name, dev))
-            runs.append((dp_grads(mods),
-                         float(next(iter(metrics.values())))))
-            del tr, state, mods
-        torch.backends.cudnn.enabled = True
-        layers.batch_moments = plain_moments
+        kinks = frozen_kinks()
+        loss, grads, _ = dp_sgd_step(name, dev, None, dp_batch(name), kinks)
         single = os.path.join(work, f"{name}_single.pt")
-        torch.save({"grads": runs[0][0], "loss": runs[0][1]}, single)
-        readings = [dp_bands(g, runs[0][0], DP_TRUNKS[name])
-                    for g, _ in runs[1:]]
-        reading = tuple(max(r[i] for r in readings) for i in range(4))
-        bands = dp_placed_bands(reading)
-        del runs
+        torch.save({"grads": grads, "loss": loss, "masks": kinks.masks},
+                   single)
+        del grads, kinks
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         try:
@@ -2150,36 +2208,42 @@ def phase_dp(dev, card, work):
         r0, r1 = ranks
         if r0["digest"] != r1["digest"] or r0["step"] != r1["step"]:
             raise AssertionError(f"dp {name}: the ranks' parameters and "
-                                 f"buffers differ after {DP_STEPS} steps")
-        if r0["bands"] != r1["bands"] or not dp_within(r0["bands"], bands):
-            raise AssertionError(f"dp {name}: 2-rank gradients vs the "
-                                 f"single-process step (head, trunk, trunk "
-                                 f"L2, null) {r0['bands']}, {r1['bands']}; "
-                                 f"bands {bands} (readings {readings})")
-        if dp_within(r0["twice"], bands):
-            raise AssertionError(f"dp {name}: twice the averaged gradients "
-                                 f"{r0['twice']} pass the bands {bands}")
+                                 f"buffers differ after {DP_STEPS + 1} "
+                                 f"steps")
+        for key in ("bands", "free"):
+            if r0[key] != r1[key]:
+                raise AssertionError(f"dp {name}: the ranks' averaged "
+                                     f"gradients differ ({key})")
+        if not dp_within(r0["bands"]):
+            raise AssertionError(f"dp {name}: 2-rank gradients (kinks "
+                                 f"frozen) vs the single-process step: "
+                                 f"{dp_fmt(r0['bands'])}")
+        for key in ("twice", "no_average"):
+            if dp_within(r0[key]):
+                raise AssertionError(f"dp {name}: {key} passes the bands: "
+                                     f"{dp_fmt(r0[key])}")
+        flips = r0["flips"] + r1["flips"]
+        if not dp_within(r0["free"], head=flips == 0):
+            raise AssertionError(f"dp {name}: 2-rank gradients (kinks "
+                                 f"free, {flips} crossed) vs the "
+                                 f"single-process step: "
+                                 f"{dp_fmt(r0['free'])}")
         rel = abs(r0["loss"] - r0["want_loss"]) / abs(r0["want_loss"])
         if not (r0["finite"] and rel < 1e-4):
             raise AssertionError(f"dp {name}: loss {r0['loss']} vs "
                                  f"{r0['want_loss']}")
-        fmt = lambda xs: "/".join(f"{x:.3g}" for x in xs[:4])
-        log(f"dp 2 ranks gloo {name}: one card, {DP_STEPS} Adam steps, "
-            f"ranks bit-identical (digest {r0['digest'][:12]}); the SGD "
-            f"step's averaged gradients vs the single-process global-batch "
-            f"step, head L2/trunk leaf/trunk L2/true-zero |g|: "
-            f"{fmt(r0['bands'])} (worst head leaf {r0['bands'][4]:.3g}, "
-            f"{r0['bands'][5]}) "
-            f"in bands {fmt(bands)} (the CPU tests' {DP_HEAD}/{DP_TRUNK}/"
-            f"{DP_TRUNK_L2}/{DP_NULL}, or {DP_READING_FACTOR:g}x the "
-            f"single step's reading with cuDNN off, half-batch kernels or "
-            f"float64 BN moments "
-            f"{fmt(reading)}); twice the "
-            f"average "
-            f"{fmt(r0['twice'])} falls outside; loss rel {rel:.3g}; ms/step "
-            f"{', '.join(f'{x:.1f}' for x in r0['ms'])} (host clock, "
-            f"steps 1-{DP_STEPS}); group {wall:.1f} s with the spawn; "
-            f"{card}")
+        log(f"dp 2 ranks gloo {name}: one card; the SGD step's averaged "
+            f"gradients vs the single-process global-batch step, leaky "
+            f"ReLU and L1 kinks frozen to its: {dp_fmt(r0['bands'])}, in "
+            f"the CPU tests' bands {DP_HEAD}/{DP_TRUNK}/{DP_TRUNK_L2}; "
+            f"twice the average ({dp_fmt(r0['twice'])}) and rank 0 not averaged "
+            f"({dp_fmt(r0['no_average'])}) outside; kinks free: "
+            f"{dp_fmt(r0['free'])}, {flips} leaky ReLU or L1 inputs across "
+            f"a kink; loss rel {rel:.3g}; ranks bit-identical after "
+            f"{DP_STEPS + 1} Adam steps (digest {r0['digest'][:12]}); "
+            f"ms/step {', '.join(f'{x:.1f}' for x in r0['ms'])} (host "
+            f"clock, steps 2-{DP_STEPS + 1}, after a warm-up step); group "
+            f"{wall:.1f} s with the spawn; {card}")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         saved
 

@@ -185,11 +185,13 @@ def _numpy_state(modules):
 def dp_run(name, payload, mesh, steps=1, default_tx=False,
            record_local=False):
     """``steps`` train steps of trainer ``name`` on ``payload["batch"]``
-    (a global batch; this rank's rows of it under ``mesh``).  Returns per
+    (a global batch; this rank's rows of it, ``shard_batch``, under
+    ``mesh``).  Returns per
     step the metrics and every parameter's ``.grad`` (after the gradient
     average; with ``record_local`` also before it), and the final
     parameters and buffers."""
     import sys
+    from voicepuppet_torch.parallel import mesh as pm
     tr, state, modules = dp_trainer(name, payload, mesh, default_tx)
     names = {id(p): f"{key}.{n}" for key, m in modules.items()
              for n, p in m.named_parameters()}
@@ -206,11 +208,12 @@ def dp_run(name, payload, mesh, steps=1, default_tx=False,
             real(params, group)
         mod.all_reduce_grads_ = recording
     rows = []
+    batch = pm.shard_batch(payload["batch"], mesh)
     try:
         for _ in range(steps):
             local.append({})
             averaged.append({})
-            state, metrics = tr.train_step(state, payload["batch"])
+            state, metrics = tr.train_step(state, batch)
             grads = {names[id(p)]: p.grad.numpy().copy()
                      for m in modules.values() for p in m.parameters()
                      if p.grad is not None}
@@ -244,6 +247,7 @@ def dp_fit(mesh, payload, tmp):
     and a metrics logger on every rank (``<tmp>/log<rank>``); then every
     rank restores the latest checkpoint into a fresh state."""
     import os
+    from voicepuppet_torch.parallel import mesh as pm
     from voicepuppet_torch.train.checkpoint import CheckpointManager
     from voicepuppet_torch.train.metrics import MetricsLogger
     cfg = payload["cfg"]
@@ -258,11 +262,12 @@ def dp_fit(mesh, payload, tmp):
                            print_every=0, tensorboard=False)
     evals = []
 
-    def batches():
+    def batches(rows):
         while True:
-            yield payload["batch"]
+            yield rows
 
-    state = tr.fit(state, batches(), 4, eval_batches=batches(),
+    state = tr.fit(state, batches(pm.shard_batch(payload["batch"], mesh)),
+                   4, eval_batches=batches(payload["batch"]),
                    logger=logger, ckpt=ckpt,
                    eval_hook=lambda step, *a: evals.append(step))
     logger.close()

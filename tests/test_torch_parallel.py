@@ -85,8 +85,8 @@ def test_shard_batch_rows_equal_jax_shards(data, n):
     sharded = jmesh.shard_batch((x, r), jmesh.make_mesh(jax.devices()[:n]))
     for rank in range(n):
         got = pm.shard_batch((x, r), _group(n, rank))
-        assert isinstance(got, pm.LocalRows)
-        assert pm.shard_batch(got, _group(n, rank)) is got
+        assert all(isinstance(g, torch.Tensor) and g.device.type == "cpu"
+                   for g in got)
         for g, arr in zip(got, sharded):
             shard = [s for s in arr.addressable_shards
                      if s.device == jax.devices()[rank]][0]
@@ -206,3 +206,47 @@ def test_group_of_one_rank_is_bit_equal_to_none(ranks, form):
                 np.testing.assert_array_equal(solo[part][k], none[part][k])
         got, want = out["solo_grads"]
         np.testing.assert_array_equal(got, want)
+
+
+def _chip_smoke():
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_frozen_kinks_replays_the_recorded_pieces():
+    """chip_smoke.py's ``frozen_kinks`` (phase 22): a run replaying a
+    recorded run's leaky ReLU and |.| signs, as rank 1 of two, keeps the
+    recorded slopes on its rows where an input has crossed a kink, and
+    otherwise computes what the functions compute, to the bit."""
+    import torch.nn.functional as F
+    fk = _chip_smoke().frozen_kinks
+    x = torch.tensor([[1.0, -2.0, 3e-7], [-4e-7, 2.0, -3.0],
+                      [5e-7, -1.0, 0.5], [1.5, 2e-7, -0.25]])
+    c = torch.tensor([0.5, -0.3, 0.1])
+
+    def grad(v, kinks):
+        v = v.clone().requires_grad_(True)
+        with kinks:
+            loss = torch.abs(F.leaky_relu(v, negative_slope=0.2) - c).sum()
+        loss.backward()
+        return loss.detach(), v.grad
+
+    rec = fk()
+    _, want = grad(x, rec)
+    assert len(rec.masks) == 2
+    plain_loss, plain = grad(x, fk(rec.masks))
+    assert torch.equal(plain, want)
+    nudged = x[2:] * torch.tensor([[-1.0, 1.0, 1.0], [1.0, -1.0, 1.0]])
+    _, got = grad(nudged, fk(rec.masks, rank=1))
+    assert torch.equal(got, want[2:])
+    free = fk(rank=1)
+    _, moved = grad(nudged, free)
+    assert not torch.equal(moved, want[2:])
+    assert free.flips(rec.masks) == 2   # the two leaky ReLU inputs
+    with pytest.raises(AssertionError, match="recorded"):
+        grad(x[:1, :2], fk(rec.masks))

@@ -885,10 +885,9 @@ def prefetch_to_device(iterator, device="cuda", size: int = 2, mesh=None):
     copies, and its tensors are marked as used there.
 
     With ``mesh`` (a ``parallel.mesh.DataGroup``) each global batch is cut
-    to this rank's rows before its copy and handed out as the
-    ``LocalRows`` that the trainers' ``shard_batch`` passes through (JAX
-    ``prefetch_to_device(iterator, mesh)``)."""
-    from voicepuppet_torch.parallel.mesh import LocalRows, rank_rows
+    to this rank's rows before its copy, which is what the trainers' steps
+    take (JAX ``prefetch_to_device(iterator, mesh)``)."""
+    from voicepuppet_torch.parallel.mesh import rank_rows
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     pending = collections.deque()
@@ -900,7 +899,7 @@ def prefetch_to_device(iterator, device="cuda", size: int = 2, mesh=None):
             current.wait_event(done)
             for t in batch:
                 t.record_stream(current)
-        return batch if mesh is None else LocalRows(batch)
+        return batch
 
     for batch in iterator:
         if mesh is not None:

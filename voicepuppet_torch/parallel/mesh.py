@@ -70,15 +70,15 @@ def _rank_device(device, local_rank: int) -> torch.device:
     return dev
 
 
-def make_mesh(device=None, backend: Optional[str] = None) -> DataGroup:
+def make_mesh(device=None) -> DataGroup:
     """The data group of this process.
 
-    An initialized default process group is taken as it is.  Otherwise,
-    under torchrun (``WORLD_SIZE`` set) the group is initialized from
-    torchrun's environment: NCCL when the rank's device is a card
-    (``cuda:LOCAL_RANK``), gloo on the CPU, or ``backend`` when given.
-    With neither, the process trains alone: world 1, no group, ``device``
-    (default the card)."""
+    An initialized default process group is taken as it is (a caller that
+    wants another backend starts its own group first).  Otherwise, under
+    torchrun (``WORLD_SIZE`` set) the group is initialized from torchrun's
+    environment: NCCL when the rank's device is a card
+    (``cuda:LOCAL_RANK``), gloo on the CPU.  With neither, the process
+    trains alone: world 1, no group, ``device`` (default the card)."""
     if dist.is_available() and dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
     elif "WORLD_SIZE" in os.environ:
@@ -91,7 +91,7 @@ def make_mesh(device=None, backend: Optional[str] = None) -> DataGroup:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(
-            backend or ("nccl" if dev.type == "cuda" else "gloo"),
+            "nccl" if dev.type == "cuda" else "gloo",
             init_method="env://", rank=rank, world_size=world,
             timeout=DEFAULT_TIMEOUT)
     return DataGroup(rank, world, dev, dist.group.WORLD)
@@ -128,14 +128,6 @@ def mesh_global_batch(requested: int, mesh: Optional[DataGroup],
     return rounded
 
 
-class LocalRows(tuple):
-    """A batch already cut to this rank's rows and on its device (what
-    :func:`shard_batch`, :func:`shard_batch_local` and
-    ``prefetch_to_device(mesh=...)`` return).  :func:`shard_batch` passes
-    it through, as a JAX ``device_put`` of an already sharded array is a
-    no-op."""
-
-
 def _lead(batch: Sequence) -> int:
     leads = {int(np.shape(b)[0]) for b in batch}
     if len(leads) != 1:
@@ -159,15 +151,15 @@ def rank_rows(batch: Sequence, mesh: DataGroup) -> tuple:
     return tuple(b[lo:lo + rows] for b in batch)
 
 
-def _on(batch: Sequence, device: torch.device) -> LocalRows:
-    return LocalRows(torch.as_tensor(b).to(device) for b in batch)
+def _on(batch: Sequence, device: torch.device) -> tuple:
+    return tuple(torch.as_tensor(b).to(device) for b in batch)
 
 
 def shard_batch(batch: Sequence, mesh: Optional[DataGroup]):
     """This rank's rows of the global host batch (:func:`rank_rows`),
-    moved to the rank's device.  With no group the batch is returned as
-    it is."""
-    if mesh is None or isinstance(batch, LocalRows):
+    moved to the rank's device: what the trainers' steps take.  With no
+    group the batch is returned as it is."""
+    if mesh is None:
         return batch
     return _on(rank_rows(batch, mesh), mesh.device)
 

@@ -39,8 +39,7 @@ from voicepuppet_torch.models.layers import (init_flax_like_,
                                              l2_regularization, sync_bn)
 from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
                                              group_of, mesh_global_batch,
-                                             pmean_metric, replicate,
-                                             shard_batch, shard_batch_local)
+                                             pmean_metric, replicate)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.loop import StepLoop
 from voicepuppet_torch.train.optim import reference_adam
@@ -97,10 +96,10 @@ class ATNetTrainer(StepLoop):
 
     def loss(self, state: TrainState, batch,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The train-mode loss of this rank's rows of ``batch`` (moves the
+        """The train-mode loss of ``batch``, this rank's rows (moves the
         BN running moments, as the step does)."""
         landmark, ears, poses, mfccs, example, seq_len = batch_to_device(
-            shard_batch(batch, self.mesh), self.device)
+            batch, self.device)
         with sync_bn(group_of(self.mesh), state.model):
             out = state.model(ears, poses, mfccs, example, seq_len,
                               train=True, generator=generator)
@@ -109,9 +108,9 @@ class ATNetTrainer(StepLoop):
 
     def train_step(self, state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        """One optimizer step on the global ``batch``; returns (state,
-        {"loss"}), the loss averaged over the ranks, as a device
-        scalar."""
+        """One optimizer step on ``batch``, this rank's rows of the global
+        batch (``parallel.mesh.shard_batch``); returns (state, {"loss"}),
+        the loss averaged over the ranks, as a device scalar."""
         loss = self.loss(state, batch, generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -119,12 +118,6 @@ class ATNetTrainer(StepLoop):
         state.optimizer.step()
         state.step += 1
         return state, pmean_metric({"loss": loss.detach()}, self.mesh)
-
-    def train_step_local(self, state: TrainState, local_batch,
-                         generator: Optional[torch.Generator] = None):
-        """The step fed per rank with this rank's rows alone."""
-        return self.train_step(
-            state, shard_batch_local(local_batch, self.mesh), generator)
 
     @torch.no_grad()
     def infer(self, state: TrainState, ears, poses, mfccs, example_lmk,

@@ -14,14 +14,15 @@ on the device and are fetched once per call — the counterpart of the JAX
 trainer's ``lax.scan`` dispatch.
 
 Data parallelism (``mesh``, the JAX trainer's ``mesh=``): the global
-batch is ``mesh_global_batch`` of the configured one, each rank takes
-its rows (``shard_batch``; ``train_step_local`` for a per-rank feed),
-runs the forward with sync-BN (``layers.sync_bn``), back-propagates its
-own mean loss, averages the gradients once (``all_reduce_grads_``) and
-only then clips and steps, so every rank's update is the same.  Dropout
-draws from ``rank_generator``.  Rank 0 alone logs, runs the eval grid
-(running moments, no collective) and writes checkpoints; the others
-wait at a barrier.  With no mesh, or a group of one rank, the step is
+batch is ``mesh_global_batch`` of the configured one, and each rank's
+step takes its rows of it (``parallel.mesh.shard_batch``, or
+``prefetch_to_device(mesh=)`` and ``shard_batch_local`` as a per-rank
+feed).  Each rank runs the forward with sync-BN (``layers.sync_bn``),
+back-propagates its own mean loss, averages the gradients once
+(``all_reduce_grads_``) and only then clips and steps, so every rank's
+update is the same.  Dropout draws from ``rank_generator``.  Rank 0
+alone logs, runs the eval grid (running moments, no collective) and
+writes checkpoints; the others wait at a barrier.  With no mesh, or a group of one rank, the step is
 the single-device step, bit for bit.
 
 Float32 training turns TF32 off (``full_fp32_matmuls``), as the JAX
@@ -52,8 +53,7 @@ from voicepuppet_torch.models.layers import sync_bn
 from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
                                              group_of, mesh_global_batch,
                                              pmean_metric, rank_generator,
-                                             replicate, shard_batch,
-                                             shard_batch_local)
+                                             replicate)
 from voicepuppet_torch.train.optim import bfmnet_optimizer, global_norm
 from voicepuppet_torch.train.state import TrainState
 
@@ -98,10 +98,9 @@ class BFMNetTrainer:
     # ---- the step ----
     def loss(self, state: TrainState, batch,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The train-mode loss of this rank's rows of ``batch`` (updates
-        the BN running moments as a side effect, as the step does)."""
-        coeff, ears, mfccs, seq_len = batch_to_device(
-            shard_batch(batch, self.mesh), self.device)
+        """The train-mode loss of ``batch``, this rank's rows (updates the
+        BN running moments as a side effect, as the step does)."""
+        coeff, ears, mfccs, seq_len = batch_to_device(batch, self.device)
         with sync_bn(group_of(self.mesh), state.model):
             out = state.model(ears, mfccs, seq_len, train=True,
                               generator=generator)
@@ -109,9 +108,11 @@ class BFMNetTrainer:
 
     def train_step(self, state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        """One optimizer step on the global ``batch``; returns (state,
-        {"loss", "grad_norm"}) with device scalars: the loss averaged over
-        the ranks, the norm of the averaged gradient before clipping."""
+        """One optimizer step on ``batch``, this rank's rows of the global
+        batch (``parallel.mesh.shard_batch``); returns (state, {"loss",
+        "grad_norm"}) with device scalars: the loss averaged over the
+        ranks, the norm of the averaged gradient (the same on every rank)
+        before clipping."""
         loss = self.loss(state, batch, generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -120,16 +121,8 @@ class BFMNetTrainer:
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         state.optimizer.step()
         state.step += 1
-        return state, pmean_metric({"loss": loss.detach(),
-                                    "grad_norm": grad_norm}, self.mesh)
-
-    def train_step_local(self, state: TrainState, local_batch,
-                         generator: Optional[torch.Generator] = None):
-        """The step fed per rank: ``local_batch`` holds only this rank's
-        ``local_batch_rows(global_batch, mesh)`` rows (JAX
-        ``bfmnet_trainer.py:105-112``).  Alone it is :meth:`train_step`."""
-        return self.train_step(
-            state, shard_batch_local(local_batch, self.mesh), generator)
+        return state, {"loss": pmean_metric(loss.detach(), self.mesh),
+                       "grad_norm": grad_norm}
 
     def train_multi_step(self, state: TrainState, batches,
                          generator: Optional[torch.Generator] = None):
@@ -156,8 +149,8 @@ class BFMNetTrainer:
         ``train_multi_step``; eval and checkpoint fire when a call crosses
         an interval, at most once per call (K larger than an interval
         coarsens that cadence, with a warning).  K = 1 is the reference
-        loop exactly.  Under a mesh each ``batches`` item is a global
-        batch (or ``prefetch_to_device(mesh=...)``'s rows of one); rank 0
+        loop exactly.  Under a mesh each ``batches`` item is this rank's
+        rows of a global batch (``prefetch_to_device(mesh=...)``); rank 0
         alone logs and evaluates."""
         main = self.mesh is None or self.mesh.is_main
         generator = rank_generator(

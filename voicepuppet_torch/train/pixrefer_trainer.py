@@ -49,7 +49,7 @@ from voicepuppet_torch.models.layers import sync_bn
 from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
                                              group_of, mesh_global_batch,
                                              pmean_metric, replicate,
-                                             shard_batch, shard_batch_local)
+                                             shard_batch_local)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.optim import gan_optimizer
 from voicepuppet_torch.train.state import GANTrainState
@@ -135,24 +135,19 @@ class PixReferTrainer:
     # ---- the D-then-G step ----
     def train_step(self, state: GANTrainState, batch,
                    marks: Optional[List] = None):
-        """One D update then one G update on the global ``batch`` (this
-        rank's rows of it); returns (state, metrics of device scalars,
-        averaged over the ranks).  ``marks``, a list (on the card),
-        receives CUDA events at the start, after D and after G."""
+        """One D update then one G update on ``batch``, this rank's rows
+        of the global batch (``parallel.mesh.shard_batch``); returns
+        (state, metrics of device scalars, averaged over the ranks).
+        ``marks``, a list (on the card), receives CUDA events at the
+        start, after D and after G."""
         with sync_bn(group_of(self.mesh), state.gen, state.disc):
             return self._step(state, batch, marks)
-
-    def train_step_local(self, state: GANTrainState, local_batch,
-                         marks: Optional[List] = None):
-        """The step fed per rank with this rank's rows alone."""
-        return self.train_step(
-            state, shard_batch_local(local_batch, self.mesh), marks)
 
     def _step(self, state: GANTrainState, batch, marks):
         cfg = self.cfg.pixrefer
         group = group_of(self.mesh)
-        inputs, fg_inputs, targets, masks = batch_to_device(
-            shard_batch(batch, self.mesh), self.device)
+        inputs, fg_inputs, targets, masks = batch_to_device(batch,
+                                                            self.device)
         _mark(marks)
         inputs_p = px.preprocess(inputs)
         fg_p = px.preprocess(fg_inputs)

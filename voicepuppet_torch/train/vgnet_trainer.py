@@ -39,8 +39,7 @@ from voicepuppet_torch.models import vgnet as vg
 from voicepuppet_torch.models.layers import sync_bn
 from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
                                              group_of, mesh_global_batch,
-                                             pmean_metric, replicate,
-                                             shard_batch, shard_batch_local)
+                                             pmean_metric, replicate)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.loop import StepLoop
 from voicepuppet_torch.train.optim import reference_adam
@@ -89,7 +88,7 @@ class VGNetTrainer(StepLoop):
     def d_step(self, state: GANTrainState, batch,
                generator: Optional[torch.Generator] = None):
         lmk_seq, _mask_seq, img_seq, ex_lmk, ex_img, seq_len = \
-            batch_to_device(shard_batch(batch, self.mesh), self.device)
+            batch_to_device(batch, self.device)
         with torch.no_grad():
             fake = state.gen(ex_img, lmk_seq, ex_lmk, seq_len, train=True)[0]
         rs, rl = state.disc(img_seq, ex_lmk, seq_len, train=True,
@@ -108,7 +107,7 @@ class VGNetTrainer(StepLoop):
     def g_step(self, state: GANTrainState, batch,
                generator: Optional[torch.Generator] = None):
         lmk_seq, mask_seq, img_seq, ex_lmk, ex_img, seq_len = \
-            batch_to_device(shard_batch(batch, self.mesh), self.device)
+            batch_to_device(batch, self.device)
         fake, att, _ = state.gen(ex_img, lmk_seq, ex_lmk, seq_len,
                                  train=True)
         fs, fl = state.disc(fake, ex_lmk, seq_len, train=True,
@@ -126,17 +125,12 @@ class VGNetTrainer(StepLoop):
 
     def train_step(self, state: GANTrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        """The step of the phase ``state.step`` falls in, on the global
-        ``batch`` (this rank's rows of it) with sync-BN."""
+        """The step of the phase ``state.step`` falls in, on ``batch``,
+        this rank's rows of the global batch (``parallel.mesh.
+        shard_batch``), with sync-BN."""
         step = self.d_step if self.is_d_phase(state.step) else self.g_step
         with sync_bn(group_of(self.mesh), state.gen, state.disc):
             return step(state, batch, generator)
-
-    def train_step_local(self, state: GANTrainState, local_batch,
-                         generator: Optional[torch.Generator] = None):
-        """The step fed per rank with this rank's rows alone."""
-        return self.train_step(
-            state, shard_batch_local(local_batch, self.mesh), generator)
 
     @torch.no_grad()
     def generate(self, state: GANTrainState, example_img, landmark_seq,
