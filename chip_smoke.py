@@ -169,6 +169,26 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         times per render call (ceil(40/16)), the faces bit
                         for bit the plain raster's, the nets card vs CPU
                         within PREP_MODEL_BAND; wall seconds of each step.
+ 24. sharded serving    Synthesizer(mesh=, mesh_partition=) at Config() on
+                        the 55-frame clip, chunk 32: a world-1 NCCL group
+                        in both partitions byte-identical to the plain
+                        Synthesizer (cuDNN deterministic); two spawned gloo
+                        ranks sharing the card, "frames" and "spatial":
+                        float32 + rgb8 within +-1 code (under 5% of values)
+                        of one process, the serving default within
+                        SHARD_SERVED_MEAN_CODES, a chunk of 16 and per-rank
+                        BN moments outside it; K1 ceil(55/32) times per call
+                        on each rank, on the rank's 16 frames ("frames") or
+                        the whole 32 ("spatial"), bit for bit the plain
+                        raster; wall ms per render_frames call (world 1
+                        beside the plain Synthesizer; two gloo ranks on one
+                        card) and a spatial stream's first block.
+ 25. experiments        every serving and training experiment of
+                        voicepuppet_torch/experiments/ (profile_serving ...
+                        profile_pixrefer_levers, streaming_quality) once at
+                        full scale, K = 2, one round: each one's exactness
+                        checks hold, its final table printed; K1 launches
+                        in the frame-program ones.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that did not launch fails the script.
@@ -2390,6 +2410,387 @@ def phase_prep(dev, counts, reset_counts, card, work):
     return dict(launches=launches[5] + launches[6])
 
 
+
+# ---- 24. sharded serving ----------------------------------------------------
+# float32 G + rgb8, sharded against one process: the JAX package's own
+# bound (tests/test_pipeline.py:195, 320): +-1 code, under 5% of values
+SHARD_MAX_CODES = 1
+SHARD_SHARE = 0.05
+# the serving default (bf16 G, yuv420), mean |diff| in codes against one
+# process: two gloo ranks on an H100 read 0.0949 (frames) and 0.0976
+# (spatial), the controls 0.1998 (a chunk of 16 in place of 32) and 0.1961
+# (each rank's BN moments over its own rows); the band lies between
+SHARD_SERVED_MEAN_CODES = 0.15
+SHARD_PARTITIONS = ("frames", "spatial")
+
+
+class k1_capture:
+    """Within the block, ``synthesize.render_colors_auto`` records each
+    call's frame count and keeps the first call's inputs and image."""
+
+    def __enter__(self):
+        from voicepuppet_torch.pipeline import synthesize as syn
+        self._saved = real = syn.render_colors_auto
+        self.frames, self.first = [], None
+
+        def wrapped(verts, colors, tri, **kw):
+            out = real(verts, colors, tri, **kw)
+            self.frames.append(int(verts.shape[0]))
+            if self.first is None:
+                self.first = (verts.clone(), colors.clone(), tri, kw,
+                              out[0].clone())
+            return out
+        syn.render_colors_auto = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from voicepuppet_torch.pipeline import synthesize as syn
+        syn.render_colors_auto = self._saved
+
+    def equals_plain(self) -> bool:
+        """The first call's image bit for bit the plain raster's."""
+        import torch
+        from voicepuppet_torch.face3d import raster as plain
+        verts, colors, tri, kw, img = self.first
+        want, _ = plain.render_colors(verts, colors, tri, kw["h"], kw["w"])
+        return bool(torch.equal(img, want))
+
+
+def shard_synth(cfg, grid, chunk, trees, mesh, partition, served,
+                device="cuda"):
+    """Phase 24's Synthesizer over ``mesh`` (None: one process on
+    ``device``): ``cfg``, the ``grid``² synthetic BFM, ``trees``;
+    ``served`` the serving default (bf16 G, yuv420), else float32 G and
+    rgb8."""
+    import torch
+    from voicepuppet_torch.face3d import bfm
+    from voicepuppet_torch.pipeline import synthesize as syn
+    kw = {} if served else dict(gan_dtype=torch.float32,
+                                transfer_format="rgb8")
+    return syn.Synthesizer(cfg, bfm.synthetic_bfm(num_theta=grid,
+                                                  num_phi=grid),
+                           *trees, chunk=chunk, mesh=mesh,
+                           mesh_partition=partition, device=device, **kw)
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def render_ms(synth, ident, panel, pcm, mesh=None, repeats=2):
+    """Wall ms of each of ``repeats`` ``render_frames`` calls of the
+    clip's frames (on a mesh, every rank starting after a barrier)."""
+    import numpy as np
+    from voicepuppet_torch.pipeline import synthesize as syn
+    s = synth.img_size
+    coeff = syn.splice_coeff_sequence(ident.bfmcoeff,
+                                      synth.predict_expressions(pcm))
+    bg = np.zeros((1, s, s, 3), np.float32)
+    ms = []
+    for _ in range(repeats):
+        if mesh is not None:
+            mesh.barrier()
+        t0 = time.perf_counter()
+        synth.render_frames(coeff, ident, panel[:, s:2 * s], panel[:, :s],
+                            bg)
+        _sync(synth.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase24_rank(mesh, cfg, grid, chunk, panel, pcm):
+    """One rank of phase 24's two gloo ranks on the card: in each
+    partition, the clip served at float32 + rgb8 and at the serving
+    default, K1's launches and frame counts per call and its first image
+    against the plain raster, wall ms of two more ``render_frames`` calls;
+    the frames partition again with each rank's BN moments over its own
+    rows (the control); a spatial stream's first block.  Every launch
+    count is set to 0 just before each of these calls and K1's read just
+    after.  Rank 0 returns the frames."""
+    import contextlib
+    import numpy as np
+    import torch
+    from voicepuppet_torch.ops import KERNELS
+    from voicepuppet_torch.pipeline import streaming
+    from voicepuppet_torch.pipeline import synthesize as syn
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = mesh.device
+    k1 = next(k for k in KERNELS if k.name == "raster_flat")
+    trees = syn.SynthesisAssets.init_trees(cfg, SEED)
+    s = cfg.pixrefer.img_size
+    out = {"launches": 0}
+
+    def counted(fn, *args):
+        """``fn(*args)`` -> (its result, K1's launches in it)."""
+        for k in KERNELS:
+            k.launches = 0
+        got = fn(*args)
+        _sync(dev)
+        out["launches"] += k1.launches
+        return got, k1.launches
+
+    def per_rank_bn(synth, ident):
+        saved = syn.sync_bn
+        syn.sync_bn = lambda group, *m: contextlib.nullcontext()
+        try:
+            return synth.synthesize(panel, pcm, ident)
+        finally:
+            syn.sync_bn = saved
+
+    def stream(synth, ident):
+        ss = streaming.StreamingSynthesizer(synth, ident, panel[:, s:2 * s],
+                                            panel[:, :s])
+        # the clip's frames: one frame of silence more
+        pcm_s = np.concatenate([pcm, np.zeros(cfg.frame_wav_scale,
+                                              np.float32)])
+        mesh.barrier()
+        t0 = time.perf_counter()
+        first, blocks = None, []
+        for i in range(0, pcm_s.shape[0], STREAM_PIECE):
+            blocks += ss.feed(pcm_s[i:i + STREAM_PIECE])
+            if first is None and ss.coeffs._next_frame > 0:
+                first = (time.perf_counter() - t0) * 1e3
+        blocks += ss.flush()
+        if first is None:
+            first = (time.perf_counter() - t0) * 1e3
+        return {"first_ms": first, "blocks": len(blocks),
+                "frames": sum(b.shape[0] for b in blocks)}
+
+    for partition in SHARD_PARTITIONS:
+        for served in (False, True):
+            synth = shard_synth(cfg, grid, chunk, trees, mesh, partition,
+                                served)
+            ident = syn.synthetic_identity(synth.face_model, SEED, s)
+            key = f"{partition} {'served' if served else 'f32'}"
+            with k1_capture() as cap:
+                frames, n = counted(synth.synthesize, panel, pcm, ident)
+            out[key] = {"frames": frames, "k1": n,
+                        "k1_frames": cap.frames,
+                        "k1_plain": cap.equals_plain(),
+                        "chunk": synth.chunk}
+            if served:
+                out[key]["ms"], out[key]["k1_timed"] = counted(
+                    render_ms, synth, ident, panel, pcm, mesh)
+            if served and partition == "frames":
+                out["frames per-rank BN"], _ = counted(per_rank_bn, synth,
+                                                       ident)
+            if served and partition == "spatial":
+                out["stream"], out["stream_k1"] = counted(stream, synth,
+                                                          ident)
+            synth.close()
+            del synth
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(cfg, grid, trees, panel, pcm, identity, dev, counts,
+                  reset_counts, card, work):
+    """24. Sharded serving at full width (Config(), ngf 64 at 512², the
+    189² BFM, the 55-frame clip, chunk 32): (1) a world-1 NCCL group
+    (``file://`` store) in both partitions serves frames byte-identical to
+    the plain Synthesizer's (cuDNN deterministic), K1 once per chunk; (2)
+    two spawned gloo ranks sharing the card, each partition: at float32 +
+    rgb8 rank 0's frames within +-1 code, under 5% of values differing,
+    of one process's; at the serving default the mean |diff| within
+    SHARD_SERVED_MEAN_CODES, which a chunk of 16 and per-rank BN moments
+    must exceed; (3) K1 on each rank ceil(55/32) = 2 times per call, on
+    16 frames (frames) or 32 (spatial), its first image bit for bit the
+    plain raster's; (4) wall ms per render_frames call of the world-1
+    group in each partition beside the plain Synthesizer's (timed before
+    and after them), and of the two gloo ranks on one card, with the
+    first block of a spatial stream.  Returns K1's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from voicepuppet_torch.parallel.mesh import make_mesh
+    from voicepuppet_torch.parallel.spawn import run_ranks
+    work = os.path.abspath(work)
+    os.makedirs(work, exist_ok=True)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    n_chunks = -(-FRAMES // CHUNK)
+    setup = (cfg, grid, CHUNK, trees)
+    launches = 0
+    try:
+        plain = shard_synth(*setup, None, "frames", True, dev)
+        want = plain.synthesize(panel, pcm, identity)
+        plain_ms = render_ms(plain, identity, panel, pcm)
+        plain32 = shard_synth(*setup, None, "frames", False, dev)
+        want32 = plain32.synthesize(panel, pcm, identity)
+        c16 = shard_synth(cfg, grid, CHUNK // 2, trees, None, "frames",
+                          True, dev)
+        control16 = c16.synthesize(panel, pcm, identity)
+        for sy in (plain32, c16):
+            sy.close()
+        del plain32, c16
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            work, "nccl_store"), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(dev)
+            if (mesh.world, mesh.group is None) != (1, False):
+                raise AssertionError(f"world-1 NCCL group: {mesh}")
+            world1_ms = {}
+            for partition in SHARD_PARTITIONS:
+                synth = shard_synth(*setup, mesh, partition, True)
+                reset_counts()
+                got = synth.synthesize(panel, pcm, identity)
+                _sync(dev)
+                launched = counts()
+                launches += launched["raster_flat"]
+                if (launched["raster_flat"] != n_chunks
+                        or not np.array_equal(got, want)):
+                    raise AssertionError(
+                        f"sharded world-1 {partition}: K1 {launched}, "
+                        f"frames equal {np.array_equal(got, want)}")
+                reset_counts()
+                world1_ms[partition] = render_ms(synth, identity, panel,
+                                                 pcm, mesh)
+                launches += counts()["raster_flat"]
+                synth.close()
+            # the plain synth again, after the world-1 calls: its spread
+            reset_counts()
+            plain_ms += render_ms(plain, identity, panel, pcm)
+            launches += counts()["raster_flat"]
+            plain.close()
+            del plain
+            log(f"sharded world-1 nccl: frames and spatial partitions serve "
+                f"the 55 frames byte-identical to the plain Synthesizer "
+                f"(cuDNN deterministic), K1 {n_chunks} launches each; wall "
+                f"ms per render_frames call: plain "
+                f"{', '.join(f'{x:.1f}' for x in plain_ms)}; "
+                + "; ".join(f"{p} {', '.join(f'{x:.1f}' for x in v)}"
+                            for p, v in world1_ms.items())
+                + f"; {card}")
+        finally:
+            dist.destroy_process_group()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(phase24_rank, 2, cfg, grid, CHUNK, panel, pcm,
+                          device=(f"cuda:{dev.index or 0}"
+                                  if dev.type == "cuda" else "cpu"),
+                          backend="gloo", timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    r0, r1 = ranks
+    launches += r0["launches"] + r1["launches"]
+    c_mean = frame_diff(control16, want)[0]
+    for partition in SHARD_PARTITIONS:
+        f32, served = (r0[f"{partition} {v}"] for v in ("f32", "served"))
+        rows = CHUNK // 2 if partition == "frames" else CHUNK
+        for r in ranks:
+            for v in ("f32", "served"):
+                got = r[f"{partition} {v}"]
+                if (got["k1"] != n_chunks or not got["k1_plain"]
+                        or got["k1_frames"][0] != rows
+                        or got["chunk"] != CHUNK
+                        or got.get("k1_timed", 2 * n_chunks)
+                        != 2 * n_chunks):
+                    raise AssertionError(
+                        f"sharded {partition} {v} rank: K1 {got['k1']} "
+                        f"launches on {got['k1_frames']} frames, equal to "
+                        f"the plain raster {got['k1_plain']}, chunk "
+                        f"{got['chunk']}")
+        if r1[f"{partition} served"]["frames"] is not None:
+            raise AssertionError("rank 1 returned frames")
+        d = np.abs(f32["frames"].astype(np.int16) - want32.astype(np.int16))
+        dmax, share = int(d.max()), float((d > 0).mean())
+        s_mean, s_over1, s_max = frame_diff(served["frames"], want)
+        controls = {f"chunk {CHUNK // 2}": c_mean}
+        if partition == "frames":
+            controls["per-rank BN"] = frame_diff(r0["frames per-rank BN"],
+                                                 want)[0]
+        log(f"sharded 2 ranks gloo {partition}: float32 + rgb8 vs one "
+            f"process max {dmax} codes, {share:.4g} of values differing "
+            f"(bound {SHARD_MAX_CODES}, {SHARD_SHARE}); served bf16 + "
+            f"yuv420 mean |diff| {s_mean:.4g} codes, share > 1 code "
+            f"{s_over1:.4g}, max {s_max} (band {SHARD_SERVED_MEAN_CODES}); "
+            f"controls {json.dumps({k: round(v, 4) for k, v in controls.items()})}; "
+            f"K1 {n_chunks} launches per call on each rank, "
+            f"{rows} frames each, bit-equal to the plain raster; wall ms "
+            f"per render_frames call {', '.join(f'{x:.1f}' for x in served['ms'])} "
+            f"(two gloo ranks on one card: a correctness run's times, not "
+            f"a multi-card rate); {card}")
+        if not (dmax <= SHARD_MAX_CODES and share < SHARD_SHARE):
+            raise AssertionError(f"sharded {partition} float32 frames off "
+                                 f"one process's: max {dmax}, share {share}")
+        if not s_mean < SHARD_SERVED_MEAN_CODES:
+            raise AssertionError(f"sharded {partition} served frames off "
+                                 f"one process's by {s_mean}")
+        bad = [k for k, v in controls.items()
+               if not v >= SHARD_SERVED_MEAN_CODES]
+        if bad:
+            raise AssertionError(f"the served band misses the controls "
+                                 f"{bad}: {controls}")
+    st = r0["stream"]
+    if (st["frames"] != FRAMES or r1["stream"]["frames"] != 0
+            or r0["stream_k1"] != st["blocks"]
+            or r1["stream_k1"] != st["blocks"]):
+        raise AssertionError(f"spatial stream: rank 0 {st['frames']} frames,"
+                             f" rank 1 {r1['stream']['frames']}, K1 "
+                             f"{r0['stream_k1']}, {r1['stream_k1']} "
+                             f"launches for {st['blocks']} blocks")
+    log(f"sharded spatial stream: {st['blocks']} blocks, {st['frames']} "
+        f"frames on rank 0, none on rank 1; first feed to first block "
+        f"{st['first_ms']:.1f} ms (two gloo ranks on one card); group "
+        f"{wall:.1f} s with the spawn; {card}")
+    return {"launches": launches}
+
+
+# ---- 25. the serving and training experiments -------------------------------
+EXPERIMENTS = (
+    ("profile_serving", ["--chunks", "16", "8", "--blocks", "2", "--k", "2",
+                         "--rounds", "1"]),
+    ("profile_tail_bucket", ["--pairs", "1"]),
+    ("profile_decode", ["--k", "2", "--rounds", "1"]),
+    ("profile_frame_tail", ["--k", "2", "--rounds", "2"]),
+    ("profile_pack", ["--k", "2", "--rounds", "1"]),
+    ("profile_pack_inprogram", ["--k", "2", "--rounds", "1"]),
+    ("streaming_quality", []),
+    ("profile_training", ["--k", "2", "--rounds", "1"]),
+    ("profile_pixrefer_step", ["--k", "2", "--rounds", "1"]),
+    ("profile_pixrefer_vgg", ["--k", "2", "--rounds", "1"]),
+    ("profile_pixrefer_layers", ["--k", "2", "--rounds", "1"]),
+    ("profile_pixrefer_levers", ["--k", "2", "--rounds", "1"]),
+)
+
+
+def phase_experiments(dev, counts, reset_counts, card):
+    """25. Each serving and training experiment's ``main`` once on the card
+    at full scale and reduced rounds (K = 2, one round): its exactness
+    checks hold inside it and its final table is printed; an entry point
+    that raises fails the phase.  K1's launches per entry point; the
+    frame-program ones must launch it.  Returns K1's launches and each
+    entry point's result."""
+    import importlib
+    import torch
+    results, launches = {}, {}
+    for name, argv in EXPERIMENTS:
+        mod = importlib.import_module(f"voicepuppet_torch.experiments.{name}")
+        reset_counts()
+        t0 = time.perf_counter()
+        results[name] = mod.main(["--device", str(dev)] + argv)
+        torch.cuda.synchronize()
+        launches[name] = counts()["raster_flat"]
+        torch.cuda.empty_cache()
+        log(f"experiment {name}: {time.perf_counter() - t0:.1f} s, K1 "
+            f"{launches[name]} launches; {card}")
+    silent = [n for n in ("profile_serving", "profile_tail_bucket",
+                          "profile_frame_tail", "profile_pack_inprogram")
+              if launches[n] == 0]
+    if silent:
+        raise AssertionError(f"K1 did not launch in {silent}")
+    return {"launches": sum(launches.values()), "results": results}
+
+
 def main():
     import numpy as np
     import torch
@@ -3047,6 +3448,17 @@ def main():
                               os.path.join(work, "prep"))
         log(f"phase 23 (prep) {time.perf_counter() - t0:.1f} s")
 
+    # ---- 24-25. sharded serving, the serving and training experiments ------
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        shard_run = phase_sharded(cfg, 189, trees, panel, pcm,
+                                  identity, dev, counts, reset_counts, card,
+                                  os.path.join(work, "shard"))
+        log(f"phase 24 (sharded serving) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    exp_run = phase_experiments(dev, counts, reset_counts, card)
+    log(f"phase 25 (experiments) {time.perf_counter() - t0:.1f} s")
+
     pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{
         "name": name,
@@ -3063,7 +3475,8 @@ def main():
     } for name, replaces, n, err, ms, pms, bms, bby in (
         ("raster_flat", f"{pallas}:126",
          launches + bfm_run["grid_launches"] + pf_run["launches"]
-         + prep_run["launches"],
+         + prep_run["launches"] + shard_run["launches"]
+         + exp_run["launches"],
          max(max_abs_err, pf_run["err"]), k_ms, p_ms, bound, bound_by),
         ("raster_grouped", f"{pallas}:337", k4_launches, k4_err, k4_ms,
          p4g_ms, bound, bound_by),

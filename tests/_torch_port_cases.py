@@ -676,3 +676,90 @@ def parallel_rank_checks(mesh, x, r):
     local = pm.shard_batch_local(pm.rank_rows((x,), mesh), mesh)
     out["local_is_rows"] = bool(np.array_equal(local[0].numpy(), xs))
     return out
+
+
+# ---- sharded serving (tests/test_torch_synthesize_sharded.py) ----
+
+SHARD_S = 256           # jax_cfg's PixRefer size
+SHARD_BFM = (16, 16, 1)  # synthetic_bfm(num_theta, num_phi, seed)
+
+
+def sharded_synth(mesh, states, partition, chunk, **kw):
+    """The port's Synthesizer at ``port_cfg()`` over ``mesh`` (float32 G,
+    rgb8, ``raster_bb`` 24 as the JAX reference renders), from numpy
+    state_dicts."""
+    import torch
+    from voicepuppet_torch.face3d import bfm
+    from voicepuppet_torch.pipeline import synthesize as tsyn
+    bfm_state, g_state = ({k: torch.as_tensor(v) for k, v in s.items()}
+                          for s in states)
+    model = bfm.synthetic_bfm(num_theta=SHARD_BFM[0],
+                              num_phi=SHARD_BFM[1], seed=SHARD_BFM[2])
+    return tsyn.Synthesizer(port_cfg(), model, bfm_state, g_state,
+                            chunk=chunk, mesh=mesh,
+                            mesh_partition=partition, raster_bb=24,
+                            gan_dtype=torch.float32, transfer_format="rgb8",
+                            device="cpu", **kw)
+
+
+def sharded_serving_rank(mesh, states, cases, units):
+    """What each rank of test_torch_synthesize_sharded.py's groups
+    computes: ``cases`` {name: (partition, chunk, kind, args)} rendered
+    by a sharded Synthesizer (``kind`` "render": render_frames(coeff,
+    identity, ref, fg, bgs); "stream": a StreamingSynthesizer fed pcm in
+    pieces, then flushed), each with synth.chunk and K1's call count;
+    ``units``: (x [B,C,H,W], the state_dicts of a GenConv and a
+    GenDeconv) for the halo and BN unit checks, or None."""
+    import torch
+    from voicepuppet_torch.models import pixrefer as px
+    from voicepuppet_torch.parallel import spatial
+    from voicepuppet_torch.pipeline import streaming, synthesize as tsyn
+    out = {"rank": mesh.rank}
+    for name, (partition, chunk, kind, args) in cases.items():
+        synth = sharded_synth(mesh, states, partition, chunk)
+        ident = tsyn.synthetic_identity(synth.face_model, 0, SHARD_S)
+        calls = []
+        real = tsyn.render_colors_auto
+
+        def counted(verts, *a, **k):
+            calls.append(int(verts.shape[0]))
+            return real(verts, *a, **k)
+
+        tsyn.render_colors_auto = counted
+        try:
+            if kind == "render":
+                coeff, ref, fg, bgs = args
+                got = synth.render_frames(coeff, ident, ref, fg, bgs)
+            else:
+                pcm, ref, fg, step = args
+                ss = streaming.StreamingSynthesizer(synth, ident, ref, fg)
+                blocks = []
+                for i in range(0, pcm.shape[0], step):
+                    blocks += ss.feed(pcm[i:i + step])
+                blocks += ss.flush()
+                got = blocks
+        finally:
+            tsyn.render_colors_auto = real
+        out[name] = {"frames": got, "chunk": synth.chunk, "k1": calls}
+    if units is not None:
+        x, conv_state, deconv_state = units
+        sp = spatial.RowSplit(mesh.group)
+        xt = torch.as_tensor(x)
+        conv = px.GenConv(x.shape[1], conv_state["Conv_0.weight"].shape[0])
+        conv.load_state_dict({k: torch.as_tensor(v)
+                              for k, v in conv_state.items()})
+        deconv = px.GenDeconv(x.shape[1],
+                              deconv_state["ConvTranspose_0.weight"].shape[1])
+        deconv.load_state_dict({k: torch.as_tensor(v)
+                                for k, v in deconv_state.items()})
+        bn = px.StatelessBatchNorm(x.shape[1])
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, x.shape[1]))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, x.shape[1]))
+        part = spatial.Part(sp.take(xt), True)
+        with torch.inference_mode():
+            out["conv_rows"] = sp.conv(conv, part).t.numpy()
+            out["deconv_rows"] = sp.conv(deconv, part).t.numpy()
+            out["moments"] = sp.moments(part.t).numpy()
+            out["bn_rows"] = sp.bn(bn, part).t.numpy()
+    return out

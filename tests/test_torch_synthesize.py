@@ -126,13 +126,29 @@ def test_synthesize_contract_on_cpu(pair):
     assert frames.dtype == np.uint8 and frames.std(axis=0).max() > 0
 
 
-def test_cpu_only_paths_refuse_what_is_not_ported():
+def test_mesh_partition_is_checked_and_a_world_one_mesh_serves(
+        pair, monkeypatch):
+    """An unknown ``mesh_partition`` raises (as the JAX assert does); a
+    mesh of one rank (``make_mesh`` outside torchrun) serves the
+    single-process frames byte for byte.  The sharded partitions are
+    tests/test_torch_synthesize_sharded.py's."""
+    from voicepuppet_torch.parallel.mesh import make_mesh
+    _, tsynth, _, tident = pair
     cfg = port_cfg()
     model = jbfm.synthetic_bfm(num_theta=6, num_phi=6)
     bfm_state, g_state = tsyn.SynthesisAssets.init_trees(cfg)
-    with pytest.raises(NotImplementedError):
-        tsyn.Synthesizer(cfg, model, bfm_state, g_state, mesh=object(),
-                         device="cpu")
+    with pytest.raises(ValueError, match="mesh_partition"):
+        tsyn.Synthesizer(cfg, model, bfm_state, g_state,
+                         mesh_partition="rows", device="cpu")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    one = tsyn.Synthesizer(
+        tsynth.cfg, tsynth.face_model, tsynth.bfmnet.state_dict(),
+        tsynth.gen.state_dict(), chunk=CHUNK, gan_dtype=torch.float32,
+        mesh=make_mesh("cpu"), mesh_partition="spatial", device="cpu")
+    coeff, face3d_ref, fg_ref, bgs = _inputs()
+    np.testing.assert_array_equal(
+        one.render_frames(coeff, tident, face3d_ref, fg_ref, bgs),
+        tsynth.render_frames(coeff, tident, face3d_ref, fg_ref, bgs))
 
 
 def test_raster_group_renders_the_same_frames(pair):

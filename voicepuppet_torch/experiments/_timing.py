@@ -10,6 +10,14 @@ queues the calls, so a call whose host-side enqueue is slower than its
 device work is still timed at the device's pace.  Variants are timed in
 turns, round after round, and each keeps its minimum: the host is noisy.
 
+With ``carry`` each call's input depends on the previous call's output,
+as the JAX harness's ``fori_loop`` carry does: every floating tensor of
+the input is nudged by ``1e-30`` times an element of the output (a
+no-op on the values, a data dependence on the stream).  Eager launches
+cannot be hoisted, so the carry only orders them.  Its cost, a few
+elementwise launches over the input per call, is timed apart (``k``
+nudges alone in a window of their own) and taken off each timing.
+
 ``build_progs`` raises when a variant fails to build or launch: a variant
 skipped in silence would hide a kernel that does not work.  On
 ``device="cpu"`` (the tests) programs are timed with ``perf_counter``.
@@ -27,32 +35,90 @@ HOLD_CYCLES = 20_000_000     # ~10 ms of spin at the H100's ~2 GHz
 Prog = Tuple[Callable[[Any], float], Callable[[Any], float], Any]
 
 
-def repeat(f: Callable[[Any], Any], k: int, device) -> Callable[[Any], float]:
-    """``x -> seconds`` that ``k`` back-to-back calls of ``f(x)`` take."""
+def _first_float(out) -> Optional[torch.Tensor]:
+    """A 0-d float32 view of the first element of ``out``'s first
+    floating (or any) tensor, in tuples, lists and dicts."""
+    if isinstance(out, torch.Tensor):
+        return out.reshape(-1)[0].float() if out.numel() else None
+    items = out.values() if isinstance(out, dict) else (
+        out if isinstance(out, (tuple, list)) else ())
+    for o in items:
+        got = _first_float(o)
+        if got is not None:
+            return got
+    return None
+
+
+def nudge(x, out):
+    """``x`` with every floating tensor moved by ``1e-30 *`` an element
+    of ``out`` (tuples, lists and dicts kept)."""
+    s = _first_float(out)
+    if s is None:
+        return x
+
+    def go(a):
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a + (1e-30 * s).to(a.dtype)
+        if isinstance(a, tuple):
+            return tuple(go(b) for b in a)
+        if isinstance(a, list):
+            return [go(b) for b in a]
+        if isinstance(a, dict):
+            return {key: go(b) for key, b in a.items()}
+        return a
+    return go(x)
+
+
+def repeat(f: Callable[[Any], Any], k: int, device,
+           carry: bool = False) -> Callable[[Any], float]:
+    """``x -> seconds`` that ``k`` back-to-back calls of ``f(x)`` take.
+    With ``carry`` each call is fed the previous call's nudged input, and
+    ``k`` nudges alone, timed in a window of their own right after, are
+    taken off: the result is the calls' time without the carry's."""
+    def calls(x):
+        out = None
+        for _ in range(k):
+            out = f(x)
+            if carry:
+                x = nudge(x, out)
+        return out
+
+    def nudges(x, out):
+        for _ in range(k):
+            x = nudge(x, out)
+
     if torch.device(device).type != "cuda":
-        def run_host(x):
+        def host_window(fn, *args):
             t0 = time.perf_counter()
-            for _ in range(k):
-                f(x)
-            return time.perf_counter() - t0
+            got = fn(*args)
+            return got, time.perf_counter() - t0
+
+        def run_host(x):
+            out, t = host_window(calls, x)
+            return t - host_window(nudges, x, out)[1] if carry else t
         return run_host
 
-    def run(x):
+    def window(fn, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(HOLD_CYCLES)
         start.record()
-        for _ in range(k):
-            f(x)
+        got = fn(*args)
         end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+        return got, (start, end)
+
+    def run(x):
+        out, span = window(calls, x)
+        spans = [span] + ([window(nudges, x, out)[1]] if carry else [])
+        spans[-1][1].synchronize()
+        t = [a.elapsed_time(b) / 1e3 for a, b in spans]
+        return t[0] - sum(t[1:])
     return run
 
 
 def build_progs(cases: Mapping[str, Tuple[Callable, Any]], k: int,
-                device="cuda", log: Optional[Callable] = print
-                ) -> Dict[str, Prog]:
+                device="cuda", log: Optional[Callable] = print,
+                carry: bool = False) -> Dict[str, Prog]:
     """``{name: (f, x)}`` -> ``{name: (run1, runK, x)}``, each program run
     once as a warm-up (the first CUDA call builds the kernels).  Raises
     the variant's own error when one fails."""
@@ -60,7 +126,8 @@ def build_progs(cases: Mapping[str, Tuple[Callable, Any]], k: int,
         raise ValueError(f"k must be at least 2, got {k}")
     progs = {}
     for name, (f, x) in cases.items():
-        p1, pk = repeat(f, 1, device), repeat(f, k, device)
+        p1 = repeat(f, 1, device, carry)
+        pk = repeat(f, k, device, carry)
         p1(x)
         pk(x)
         progs[name] = (p1, pk, x)

@@ -474,13 +474,28 @@ def l2_regularization(module: nn.Module, scale: float = 1e-4
     return scale * 0.5 * sum(torch.sum(torch.square(w)) for w in leaves)
 
 
+@contextlib.contextmanager
+def one_cpu_thread():
+    """Within the block torch's CPU ops use one thread (restored after)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
 def orthogonal_(w: torch.Tensor, generator: torch.Generator):
     """flax ``orthogonal()`` on a kernel flattened to [fan_in, out], stored
-    ``[out, ...]`` as torch keeps it."""
+    ``[out, ...]`` as torch keeps it.  The QR runs on one CPU thread: the
+    blocked LAPACK QR rounds differently with the thread count, which gave
+    processes with other thread counts (a spawned rank, a test worker)
+    other weights from one seed."""
     cols = w.shape[0]
     rows = w[0].numel()
     a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
-    q, r = torch.linalg.qr(a)
+    with one_cpu_thread():
+        q, r = torch.linalg.qr(a)
     q = q * torch.sign(torch.diagonal(r))
     if rows < cols:
         q = q.T

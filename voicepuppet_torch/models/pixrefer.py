@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from voicepuppet_torch.models.layers import (SameConv2d,
-                                             SameConvTranspose2d, SyncBN)
+                                             SameConvTranspose2d, SyncBN,
+                                             same_pads)
 from voicepuppet_torch.parallel.mesh import AllReduceSum, spans_ranks
 
 
@@ -60,11 +61,17 @@ class StatelessBatchNorm(SyncBN):
             both = AllReduceSum.apply(torch.cat([mean, mean2]), self.group)
             both = both / dist.get_world_size(self.group)
             mean, mean2 = both[:1], both[1:]
+        return self.normalize(xf, mean, mean2).to(x.dtype)
+
+    def normalize(self, xf, mean, mean2):
+        """float32 ``xf`` normalized with given moments ([1,C,1,1] mean
+        and mean of squares, float32), scaled and offset: the path of a
+        caller that takes the moments itself, over any element count
+        (``parallel/spatial.py``: a tensor split by rows over ranks)."""
         var = mean2 - torch.square(mean)
         inv = torch.rsqrt(var + self.epsilon)
-        y = ((xf - mean) * inv * self.weight.view(1, -1, 1, 1)
-             + self.bias.view(1, -1, 1, 1))
-        return y.to(x.dtype)
+        return ((xf - mean) * inv * self.weight.view(1, -1, 1, 1)
+                + self.bias.view(1, -1, 1, 1))
 
 
 class GenConv(nn.Module):
@@ -76,6 +83,18 @@ class GenConv(nn.Module):
 
     def forward(self, x):
         return self.Conv_0(x)
+
+    def forward_halo(self, x):
+        """The conv of rows ``x`` that carry one halo row above and one
+        below (a neighbour's row, or zeros at the tensor's edge) in place
+        of SAME's height padding: output row i reads input rows 2i-1 ..
+        2i+2, so an even count of rows plus the two halo rows gives
+        exactly this block's output rows.  The width is padded as SAME
+        pads it."""
+        c = self.Conv_0
+        pw = same_pads(x.shape[-1], c.kernel_size[1], c.stride[1])
+        return c._conv_forward(F.pad(x, (pw[0], pw[1], 0, 0)),
+                               c.weight.to(x.dtype), c.bias.to(x.dtype))
 
 
 class GenDeconv(nn.Module):
@@ -90,6 +109,50 @@ class GenDeconv(nn.Module):
 
     def forward(self, x):
         return self.ConvTranspose_0(x)
+
+    def forward_halo(self, x):
+        """The transposed conv of rows ``x`` [a-1, b] (one halo row each
+        side, zeros at the tensor's edge) -> output rows [2a, 2b): the
+        halo rows widen the output by ``stride`` rows at each end, and a
+        height padding ``stride`` larger crops them."""
+        c = self.ConvTranspose_0
+        return F.conv_transpose2d(x, c.weight.to(x.dtype),
+                                  c.bias.to(x.dtype), c.stride,
+                                  (c.padding[0] + c.stride[0],
+                                   c.padding[1]))
+
+
+class WholeOps:
+    """The generator's ops on whole NCHW tensors, as its plain forward
+    runs them.  ``parallel.spatial.RowSplit`` supplies the same six ops
+    on tensors whose rows are split over ranks."""
+
+    @staticmethod
+    def enter(x):
+        return x
+
+    @staticmethod
+    def leave(y):
+        return y
+
+    @staticmethod
+    def act(fn, x):
+        return fn(x)
+
+    @staticmethod
+    def conv(module, x):
+        return module(x)
+
+    @staticmethod
+    def bn(module, x):
+        return module(x)
+
+    @staticmethod
+    def cat(a, b):
+        return torch.cat([a, b], dim=1)
+
+
+WHOLE = WholeOps()
 
 
 class Generator(nn.Module):
@@ -142,39 +205,44 @@ class Generator(nn.Module):
             ch = out
         self.decoder_1 = GenDeconv(ch + ngf, out_channels)
 
-    def forward(self, inputs, fg_ref):
-        x = inputs.permute(0, 3, 1, 2).to(self.dtype)
-        fg = fg_ref.permute(0, 3, 1, 2).to(self.dtype)
+    def forward(self, inputs, fg_ref, ops=WHOLE):
+        """``ops``: how each op of the U-Net runs (:data:`WHOLE`: the
+        plain forward; ``parallel.spatial.RowSplit``: the height split
+        over ranks)."""
+        x = ops.enter(inputs.permute(0, 3, 1, 2).to(self.dtype))
+        fg = ops.enter(fg_ref.permute(0, 3, 1, 2).to(self.dtype))
         bn = iter(getattr(self, f"StatelessBatchNorm_{i}") for i in range(17))
 
-        layers = [self.encoder_1(x)]
+        def down(name, y):
+            return ops.bn(next(bn), ops.conv(getattr(self, name),
+                                             ops.act(lrelu, y)))
+
+        def up(name, y):
+            return ops.bn(next(bn), ops.conv(getattr(self, name),
+                                             ops.act(F.relu, y)))
+
+        layers = [ops.conv(self.encoder_1, x)]
         for i in range(3):
-            layers.append(next(bn)(getattr(self, f"encoder_{i + 2}")(
-                lrelu(layers[-1]))))
-        fg_layers = [self.encoder_fg_1(fg)]
+            layers.append(down(f"encoder_{i + 2}", layers[-1]))
+        fg_layers = [ops.conv(self.encoder_fg_1, fg)]
         for i in range(3):
-            fg_layers.append(next(bn)(getattr(self, f"encoder_fg_{i + 2}")(
-                lrelu(fg_layers[-1]))))
-        merged = [torch.cat([layers[-1], fg_layers[-1]], dim=1)]
+            fg_layers.append(down(f"encoder_fg_{i + 2}", fg_layers[-1]))
+        merged = [ops.cat(layers[-1], fg_layers[-1])]
         for i in range(4):
-            merged.append(next(bn)(getattr(self, f"merged_encoder_{i + 2}")(
-                lrelu(merged[-1]))))
+            merged.append(down(f"merged_encoder_{i + 2}", merged[-1]))
         num_enc = len(merged)
         for dl in range(4):
             skip = num_enc - dl - 1
-            x = merged[-1] if dl == 0 else torch.cat(
-                [merged[-1], merged[skip]], dim=1)
-            merged.append(next(bn)(getattr(
-                self, f"merged_decoder_{skip + 1}")(F.relu(x))))
+            x = merged[-1] if dl == 0 else ops.cat(merged[-1], merged[skip])
+            merged.append(up(f"merged_decoder_{skip + 1}", x))
         num_enc2 = len(layers)
         for dl in range(3):
             skip = num_enc2 - dl - 1
-            x = torch.cat([merged[-1], layers[skip]], dim=1)
-            merged.append(next(bn)(getattr(
-                self, f"merged2_decoder_{skip + 1}")(F.relu(x))))
-        x = torch.cat([merged[-1], layers[0]], dim=1)
-        x = self.decoder_1(F.relu(x))
-        return torch.tanh(x.float()).permute(0, 2, 3, 1)
+            merged.append(up(f"merged2_decoder_{skip + 1}",
+                             ops.cat(merged[-1], layers[skip])))
+        x = ops.conv(self.decoder_1,
+                     ops.act(F.relu, ops.cat(merged[-1], layers[0])))
+        return torch.tanh(ops.leave(x).float()).permute(0, 2, 3, 1)
 
 
 def composite(gen_out, targets):

@@ -30,7 +30,7 @@ import dataclasses
 import datetime
 import logging
 import os
-from typing import Any, Iterable, Optional, Sequence
+from typing import Any, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -196,6 +196,26 @@ def replicate(modules: Iterable[torch.nn.Module],
         for m in modules:
             for t in list(m.parameters()) + list(m.buffers()):
                 dist.broadcast(t.data, 0, group=mesh.group)
+
+
+def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``x`` (one shape on every rank), in rank order, on
+    every rank."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+
+def gather_to_main(x: torch.Tensor,
+                   mesh: DataGroup) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``x`` (one shape on every rank), in rank order, on
+    rank 0; None on the other ranks, which receive nothing."""
+    x = x.contiguous()
+    parts = ([torch.empty_like(x) for _ in range(mesh.world)]
+             if mesh.is_main else None)
+    dist.gather(x, parts, dst=0, group=mesh.group)
+    return parts
 
 
 class AllReduceSum(torch.autograd.Function):

@@ -16,7 +16,11 @@ Port of ``voicepuppet_tpu/pipeline/streaming.py``:
 Frames are rendered by the batch ``Synthesizer``'s frame program, with its
 raster (``raster_group`` > 0: the grouped kernel K4) and its bf16
 generator, one full chunk per block (a short last block is padded to the
-chunk with zero coefficients).
+chunk with zero coefficients).  Over a sharded Synthesizer (``mesh=``)
+every rank feeds the same pcm and each block goes through the sharded
+frame program (``mesh_partition="spatial"``, the low-latency mode, or
+``"frames"``: the chunk is already a multiple of the world size); rank 0
+gets the blocks and the other ranks empty lists.
 """
 
 from __future__ import annotations
@@ -205,6 +209,8 @@ class StreamingSynthesizer:
         self._frames_emitted += emit
         out = self._program(coeff, ang, self._bg_pool, idx, self._face3d_ref,
                             self._fg_ref)
+        if out is None:         # a rank other than 0 of a sharded synth
+            return None
         return synth.start_fetch(out), emit
 
     @torch.inference_mode()
@@ -213,6 +219,8 @@ class StreamingSynthesizer:
         pending = None
         for block in blocks:
             cur = self._dispatch(block)
+            if cur is None:
+                continue
             if pending is not None:
                 outs.append(self.synth.finish_fetch(*pending))
             pending = cur

@@ -11,7 +11,9 @@ Port of the serving path of ``voicepuppet_tpu/pipeline/synthesize.py``:
 Frames are rendered in chunks of ``chunk``; the last chunk pads to the
 smallest power of two >= its length (floor 8, cap ``chunk``), exactly as
 the reference does, because the padded zero-coefficient frames enter the
-generator's batch-stat BN and so shape the tail frames.  The drain copies
+generator's batch-stat BN and so shape the tail frames (``_tail_bucket``
+False pads it to the whole chunk, an A/B switch of
+``experiments/profile_tail_bucket.py``).  The drain copies
 each packed chunk to pinned host memory on a side stream; a persistent
 pool of ``drain_workers`` threads waits for each copy and unpacks it with
 numpy while the card computes the next chunks (pipeline depth 4, each task
@@ -26,7 +28,22 @@ dumps (``from_npz``), read with no TensorFlow by ``tools/``.
 equals the flat kernel's; the streaming driver (``pipeline/streaming.py``)
 reuses :meth:`Synthesizer.frame_program_for` and the fetch helpers.
 
-Not ported (ROADMAP.md Queue 1): the multi-device ``mesh`` options.
+Sharded serving (``mesh=``, a ``parallel.mesh.DataGroup`` of several
+ranks, each a process with its own device): every rank builds the same
+Synthesizer and calls ``render_frames`` / ``synthesize`` (or feeds a
+``StreamingSynthesizer``) with the same arguments, SPMD, as the trainers'
+steps are called.  Every rank runs the coefficient program, which is
+replicated.  ``mesh_partition="frames"`` splits each chunk's frames over
+the ranks: the chunk is rounded down to a multiple of the world size
+(at least the world size) and so is a tail bucket; each rank decodes,
+rasterizes (K1) and packs its rows, the generator's batch-stat BN taking
+its moments over the whole chunk (``layers.sync_bn``), and rank 0
+gathers the packed chunk in frame order.  ``"spatial"`` keeps the frames
+whole on every rank (decode and K1 over the whole chunk) and splits the
+generator's height (``parallel/spatial.py``: conv halo exchanges); each
+rank packs its band of rows and rank 0 gathers the bands.  That scales one frame's latency, the
+mode for streaming.  Rank 0 drains and returns the frames; the other
+ranks return None (``StreamingSynthesizer`` yields no blocks there).
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from voicepuppet_torch.audio.frontend import MelFrontend, full_fp32_matmuls
@@ -51,13 +69,18 @@ from voicepuppet_torch.face3d import bfm as bfm_mod
 from voicepuppet_torch.face3d import morph
 from voicepuppet_torch.models import pixrefer as px
 from voicepuppet_torch.models.bfmnet import BFMNet, init_bfmnet_
+from voicepuppet_torch.models.layers import sync_bn
 from voicepuppet_torch.ops import render_colors_auto
+from voicepuppet_torch.parallel import spatial
+from voicepuppet_torch.parallel.mesh import (gather_to_main, rank_rows,
+                                             replicate)
 from voicepuppet_torch.pipeline.align import head_sway_angles
 from voicepuppet_torch.tools import tf_checkpoint as tfc
 from voicepuppet_torch.tools.tf_bundle import read_checkpoint
 from voicepuppet_torch.weights import check_state_dict
 
 TRANSFER_FORMATS = ("yuv420", "rgb8")
+MESH_PARTITIONS = ("frames", "spatial")
 DRAIN_DEPTH = 4         # chunks in flight between dispatch and drain
 
 
@@ -104,15 +127,15 @@ def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_yuv420(frames: torch.Tensor) -> torch.Tensor:
-    """[C,S,S,3] float in [0,1] -> [C, S*S*3//2] uint8 planar YUV 4:2:0
-    (BT.601 full range, chroma = 2x2 box mean).
+    """[C,H,W,3] float in [0,1] -> [C, H*W*3//2] uint8 planar YUV 4:2:0
+    (BT.601 full range, chroma = 2x2 box mean; H and W even).
 
     The reference's chained elementwise form, rounded as the reference
     rounds it: XLA fuses each ``a*b + c`` of this chain into one FMA (its
     CPU backend contracts them; measured, tests/test_torch_port_units.py),
     so the products are fused here too, one float32 rounding per FMA, and
     the rounded bytes match it exactly."""
-    c, s = frames.shape[0], frames.shape[1]
+    c, h, w = frames.shape[:3]
     f = torch.clamp(frames, 0.0, 1.0) * 255.0
     r, g, b = f[..., 0], f[..., 1], f[..., 2]
     y = _fma(b, 0.114, _fma(r, 0.299, g * 0.587))
@@ -120,13 +143,35 @@ def _pack_yuv420(frames: torch.Tensor) -> torch.Tensor:
     v = _fma(r - y, 0.713, torch.full_like(y, 128.0))
 
     def box(p):
-        q = p.reshape(c, s // 2, 2, s // 2, 2)
+        q = p.reshape(c, h // 2, 2, w // 2, 2)
         return (((q[:, :, 0, :, 0] + q[:, :, 0, :, 1]) + q[:, :, 1, :, 0])
                 + q[:, :, 1, :, 1]) * 0.25
 
     packed = torch.cat([y.reshape(c, -1), box(u).reshape(c, -1),
                         box(v).reshape(c, -1)], dim=1)
     return torch.clamp(torch.round(packed), 0, 255).to(torch.uint8)
+
+
+def pack_frames(frames: torch.Tensor, transfer_format: str) -> torch.Tensor:
+    """[C,H,W,3] float frames in [0,1], or an even band of their rows
+    (:func:`join_packed_rows`), packed for the drain."""
+    if transfer_format == "yuv420":
+        return _pack_yuv420(frames)
+    return torch.clamp(frames * 255.0, 0, 255).to(torch.uint8)
+
+
+def join_packed_rows(parts, transfer_format: str) -> torch.Tensor:
+    """The packed chunk from the packed bands of its rows, top to bottom
+    (each band an even number of rows): rgb8 bands stack on the rows,
+    yuv420 bands plane by plane.  Each packed byte depends on its own
+    pixel (rgb8) or 2x2 block (yuv420) only, so the result is the packed
+    whole chunk, byte for byte."""
+    if transfer_format == "rgb8":
+        return torch.cat(parts, 1)
+    band = parts[0].shape[1] * 2 // 3       # Y bytes of one band
+    planes = [p.split([band, band // 4, band // 4], 1) for p in parts]
+    return torch.cat([torch.cat([p[i] for p in planes], 1)
+                      for i in range(3)], 1)
 
 
 def _unpack_yuv420(packed: np.ndarray, s: int) -> np.ndarray:
@@ -179,13 +224,24 @@ def resize_linear(face: torch.Tensor, out_hw: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def tail_bucket(n: int, chunk: int) -> int:
+def frames_chunk(chunk: int, world: int) -> int:
+    """The chunk of a ``frames`` partition over ``world`` ranks: rounded
+    DOWN to a multiple of the world size, at least the world size
+    (ref: synthesize.py:210-212)."""
+    c = max(chunk, world)
+    return c - c % world
+
+
+def tail_bucket(n: int, chunk: int, multiple: int = 1) -> int:
     """Frames rendered for a last chunk of ``n`` < ``chunk`` frames: the
-    smallest power of two >= n, floor 8, capped at ``chunk``
-    (ref: synthesize.py:440-449)."""
+    smallest power of two >= n, floor 8, then at least ``multiple`` and
+    rounded up to a multiple of it (the ranks of a ``frames`` partition),
+    capped at ``chunk`` (ref: synthesize.py:440-449)."""
     cc = 8
     while cc < n:
         cc *= 2
+    cc = max(cc, multiple)
+    cc += -cc % multiple
     return min(cc, chunk)
 
 
@@ -204,27 +260,49 @@ class Synthesizer:
     ``drain_workers``: threads that wait for and unpack drained chunks.
     ``raster_group``: > 0 selects the grouped raster kernel K4 (groups of
     that many consecutive triangles), 0 the flat kernel K1; both give the
-    same frames."""
+    same frames.
+    ``mesh``: a ``parallel.mesh.DataGroup`` (``make_mesh()`` under
+    torchrun, or a ``parallel.spawn.run_ranks`` group); the device is then
+    the rank's.  Over several ranks the calls are SPMD (module docstring)
+    and the weights are broadcast from rank 0; a group of one rank serves
+    as no mesh does.  A mesh of several ranks with no initialized process
+    group raises.
+    ``mesh_partition``: ``"frames"`` (default; ``chunk`` is rounded down
+    to a multiple of the world size) or ``"spatial"`` (``chunk`` as
+    given; the image size must split, ``spatial.split_level``)."""
 
     def __init__(self, cfg: Config, face_model,
                  bfmnet_state: Mapping[str, torch.Tensor],
                  g_state: Mapping[str, torch.Tensor],
                  chunk: int = 16, raster_size: int = 224,
                  raster_bb: int = 12, mesh=None,
+                 mesh_partition: str = "frames",
                  gan_dtype: torch.dtype = torch.bfloat16,
                  bfmnet_dtype: torch.dtype = torch.float32,
                  transfer_format: str = "yuv420",
                  drain_workers: int = 1,
                  raster_group: int = 0, device="cuda"):
         self._drain_pool = None
-        if mesh is not None:
-            raise NotImplementedError("multi-device mesh serving is not "
-                                      "ported yet (ROADMAP.md Queue 1)")
+        if mesh_partition not in MESH_PARTITIONS:
+            raise ValueError(f"mesh_partition {mesh_partition!r}: one of "
+                             f"{MESH_PARTITIONS}")
         if transfer_format not in TRANSFER_FORMATS:
             raise NotImplementedError(
                 f"transfer_format {transfer_format!r}: only "
                 f"{' and '.join(TRANSFER_FORMATS)} are ported")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.mesh_partition = mesh_partition
+        # the partition actually served: None for one process
+        self._partition = None
+        if mesh is not None and mesh.world > 1:
+            if mesh.group is None or not dist.is_initialized():
+                raise RuntimeError(
+                    f"a {mesh.world}-rank mesh with no initialized process "
+                    f"group: start the group (torchrun + make_mesh(), or "
+                    f"run_ranks) before serving sharded")
+            self._partition = mesh_partition
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         full_fp32_matmuls()
         self.cfg = cfg
         self.face_model = face_model
@@ -236,13 +314,24 @@ class Synthesizer:
         self.gen = px.PixReferNet(cfg.pixrefer)
         self.gen.load_state_dict(g_state)
         self.gen.set_conv_dtype(gan_dtype).to(self.device).eval()
+        self.img_size = cfg.pixrefer.img_size
+        if self._partition is not None:
+            replicate([self.bfmnet, self.gen], mesh)
+        if self._partition == "frames":
+            chunk = frames_chunk(chunk, mesh.world)
+        if (self._partition == "spatial"
+                and not spatial.split_level(self.img_size, mesh.world)):
+            raise ValueError(f"mesh_partition 'spatial': {self.img_size} "
+                             f"rows do not split over {mesh.world} ranks")
         self.chunk = chunk
+        # tail bucketing in render_frames (the A/B switch of
+        # experiments/profile_tail_bucket.py; always on in serving)
+        self._tail_bucket = True
         self.raster_size = raster_size
         self.raster_bb = raster_bb
         self.raster_group = int(raster_group)
         self.transfer_format = transfer_format
         self.drain_workers = max(1, int(drain_workers))
-        self.img_size = cfg.pixrefer.img_size
         self._side = None         # the d2h copy stream, made at first use
 
     # ---- program 1: audio -> expression coefficients (whole clip) ----
@@ -296,10 +385,46 @@ class Synthesizer:
         return functools.partial(self.frame_program,
                                  self.frame_geometry(identity))
 
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 of a mesh, or a process serving alone: the caller that
+        gets the frames."""
+        return self._partition is None or self.mesh.is_main
+
     def frame_program(self, geometry, coeff, angles, bg_pool, bg_idx,
-                      face3d_ref, fg_ref) -> torch.Tensor:
+                      face3d_ref, fg_ref) -> Optional[torch.Tensor]:
         """One chunk: coeff [C,257], angles [C,3], bg_pool [P,S,S,3],
-        bg_idx [C], refs [S,S,3] -> packed uint8 frames."""
+        bg_idx [C], refs [S,S,3] -> packed uint8 frames.  Sharded, every
+        rank passes the whole chunk; rank 0 gets the packed chunk and the
+        other ranks None."""
+        part = self._partition
+        group = None if part is None else self.mesh.group
+        if part == "frames":
+            coeff, angles, bg_idx = rank_rows((coeff, angles, bg_idx),
+                                              self.mesh)
+        inputs, fg_inputs, background = self._generator_inputs(
+            geometry, coeff, angles, bg_pool, bg_idx, face3d_ref, fg_ref)
+        if part == "spatial":
+            rows = spatial.RowSplit(group)
+            raw = spatial.generator_rows(self.gen.generator, inputs,
+                                         fg_inputs[..., :3], group)
+            outputs, _, _ = px.composite(raw, rows.take(background, 1))
+        else:
+            with sync_bn(group, self.gen):
+                outputs, _, _ = self.gen(inputs, fg_inputs, background)
+        packed = pack_frames(px.deprocess(outputs), self.transfer_format)
+        if part is None:
+            return packed
+        parts = gather_to_main(packed, self.mesh)
+        if parts is None:
+            return None
+        return (torch.cat(parts) if part == "frames"
+                else join_packed_rows(parts, self.transfer_format))
+
+    def _generator_inputs(self, geometry, coeff, angles, bg_pool, bg_idx,
+                          face3d_ref, fg_ref):
+        """3DMM decode, K1 raster, resize and paste -> the generator's
+        (inputs, fg_inputs, targets), NHWC in [-1, 1]."""
         out_hw, paste, colors_bgr = geometry
         (ty0, ty1, tx0, tx1), (sy0, sy1, sx0, sx1) = paste
         rs = self.raster_size
@@ -324,20 +449,16 @@ class Synthesizer:
         inputs = torch.cat([ref, canvas], dim=-1)
         fg_ref_b = fg_ref[None].expand(c, -1, -1, -1)
         fg_inputs = torch.cat([fg_ref_b, torch.zeros_like(fg_ref_b)], dim=-1)
-        outputs, _, _ = self.gen(px.preprocess(inputs),
-                                 px.preprocess(fg_inputs),
-                                 px.preprocess(background))
-        frames = px.deprocess(outputs)
-        if self.transfer_format == "yuv420":
-            return _pack_yuv420(frames)
-        return torch.clamp(frames * 255.0, 0, 255).to(torch.uint8)
+        return (px.preprocess(inputs), px.preprocess(fg_inputs),
+                px.preprocess(background))
 
     @torch.inference_mode()
     def render_frames(self, coeff_seq, identity: Identity,
                       face3d_ref: np.ndarray, fg_ref: np.ndarray,
                       backgrounds, angles: Optional[np.ndarray] = None
-                      ) -> np.ndarray:
-        """coeff_seq [T,257] -> frames [T,S,S,3] uint8."""
+                      ) -> Optional[np.ndarray]:
+        """coeff_seq [T,257] -> frames [T,S,S,3] uint8 (None on a rank
+        other than 0 of a sharded Synthesizer)."""
         dev = self.device
         coeff_seq = torch.as_tensor(coeff_seq, dtype=torch.float32,
                                     device=dev)
@@ -373,6 +494,7 @@ class Synthesizer:
 
         frames = np.zeros((t, self.img_size, self.img_size, 3), np.uint8)
         c = self.chunk
+        multiple = self.mesh.world if self._partition == "frames" else 1
 
         def drain(start, n, fetch):
             frames[start:start + n] = self.finish_fetch(fetch, n)
@@ -381,7 +503,8 @@ class Synthesizer:
         futures = []
         for start in range(0, t, c):
             n = min(c, t - start)
-            cc = c if n == c else tail_bucket(n, c)
+            cc = (tail_bucket(n, c, multiple)
+                  if n < c and self._tail_bucket else c)
             coeff_c = torch.zeros((cc, 257), device=dev)
             coeff_c[:n] = coeff_seq[start:start + n]
             ang_c = torch.zeros((cc, 3), device=dev)
@@ -390,13 +513,15 @@ class Synthesizer:
             idx_c[:n] = bg_idx_all[start:start + n]
             out = self.frame_program(geometry, coeff_c, ang_c, bg_pool,
                                      idx_c, face3d_ref, fg_ref)
+            if out is None:
+                continue
             fetch = self.start_fetch(out)
             while len(futures) >= DRAIN_DEPTH:
                 futures.pop(0).result()
             futures.append(pool.submit(drain, start, n, fetch))
         for f in futures:
             f.result()
-        return frames
+        return frames if self.is_main else None
 
     def _drain_executor(self) -> ThreadPoolExecutor:
         """The drain pool, made at first use; it persists across calls (a
@@ -486,7 +611,8 @@ class Synthesizer:
                 t0 = time.perf_counter()
             for _ in range(n):
                 out = prog(coeff, ang, bg_pool, idx, ref, ref)
-                coeff = coeff + 1e-30 * out.reshape(-1)[0].float()
+                if out is not None:
+                    coeff = coeff + 1e-30 * out.reshape(-1)[0].float()
             if cuda:
                 end.record()
                 end.synchronize()
