@@ -189,6 +189,17 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         full scale, K = 2, one round: each one's exactness
                         checks hold, its final table printed; K1 launches
                         in the frame-program ones.
+ 26. bench, graft entry voicepuppet_torch.bench.measure with the full
+                        workload (8 s of audio, 201 frames, chunk 32) and a
+                        30 s budget: raster_parity "ok", at least 4 runs,
+                        finite frames/s, K1 7 times a call plus the
+                        frame-rate probe's and the selftest's; the bench's
+                        JSON line and the median of its runs; the
+                        graft_entry frame step (K1 once, float32 G)
+                        against Synthesizer.frame_program_for at float32
+                        within 0.01 codes, the served bf16 program's
+                        distance printed; the dryrun_multichip(2) of
+                        graft_entry as two gloo ranks sharing the card.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of that path that did not launch fails the script.
@@ -2760,6 +2771,7 @@ EXPERIMENTS = (
     ("profile_pixrefer_vgg", ["--k", "2", "--rounds", "1"]),
     ("profile_pixrefer_layers", ["--k", "2", "--rounds", "1"]),
     ("profile_pixrefer_levers", ["--k", "2", "--rounds", "1"]),
+    ("gen_bf16_inputs", []),
 )
 
 
@@ -2784,11 +2796,151 @@ def phase_experiments(dev, counts, reset_counts, card):
         log(f"experiment {name}: {time.perf_counter() - t0:.1f} s, K1 "
             f"{launches[name]} launches; {card}")
     silent = [n for n in ("profile_serving", "profile_tail_bucket",
-                          "profile_frame_tail", "profile_pack_inprogram")
+                          "profile_frame_tail", "profile_pack_inprogram",
+                          "gen_bf16_inputs")
               if launches[n] == 0]
     if silent:
         raise AssertionError(f"K1 did not launch in {silent}")
     return {"launches": sum(launches.values()), "results": results}
+
+
+# ---- 26. the port's benchmark and graft entry points ------------------------
+BENCH_BUDGET_S = 30.0       # the bench's timed runs (360 s by default)
+BENCH_MIN_RUNS = 4
+# entry() (float32 G) against Synthesizer.frame_program_for at float32,
+# mean |diff| of the uint8 frames in codes (equal on the CPU,
+# tests/test_torch_graft_entry.py)
+ENTRY_MEAN_CODES = 0.01
+
+
+def phase_bench(cfg, trees, dev, counts, reset_counts, card):
+    """26. (a) ``voicepuppet_torch.bench.measure`` on the card with the
+    full workload (Config(), the 189² BFM, 8 s of audio: 201 frames, 7
+    chunks of 32) and a 30 s budget: the selftest's verdict "ok", at
+    least 4 runs, every frames/s finite, and K1 launched exactly 7 times
+    per call (the warm-up and each run) plus the frame-rate probe's 36
+    frame programs plus the selftest's own launches (read alone first);
+    the bench's JSON line, the median and spread of its runs.  (b)
+    ``graft_entry.entry()``: its frame step launches K1 once, and its
+    frames (float32 G, as the JAX entry's), as uint8, agree within
+    ENTRY_MEAN_CODES with ``Synthesizer.frame_program_for(graft_entry.
+    entry_identity())`` at ``gan_dtype=float32`` and ``rgb8`` on the same
+    arguments and weights; the served bf16 program's distance on them is
+    printed beside it, not gated: GEN_BF16_MEAN_CODES holds the main
+    path's inputs (phase 8), and the bf16 distance grows on zero
+    references and at 4 frames (experiment ``gen_bf16_inputs``, phase
+    25).  (c) ``graft_entry.dryrun_multichip(2)`` as two gloo ranks
+    sharing the card.  Returns K1's launches on the main path (the
+    selftest's comparisons left out)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from voicepuppet_torch import bench, graft_entry
+    from voicepuppet_torch.face3d import bfm
+    from voicepuppet_torch.ops import raster_selftest
+    from voicepuppet_torch.pipeline import synthesize as syn
+
+    # (a) the bench
+    reset_counts()
+    raster_selftest.run_selftest(dev)
+    torch.cuda.synchronize()
+    selftest_k1 = counts()["raster_flat"]
+    face_model = bfm.synthetic_bfm(num_theta=bench.MESH_GRID,
+                                   num_phi=bench.MESH_GRID, seed=0)
+    saved_env = {k: os.environ.pop(k, None) for k in (
+        "BENCH_CHUNK", "BENCH_RASTER_GROUP", "BENCH_RASTER_PARITY")}
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = bench.measure(cfg, face_model, device=dev,
+                            budget_s=BENCH_BUDGET_S, min_runs=BENCH_MIN_RUNS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+    finally:
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+    n_frames = rec["frames"].shape[0]
+    chunks = -(-n_frames // CHUNK)
+    probe = (1 + 8) * (1 + 3)     # estimate_chunk_compute(k=8, repeats=3)
+    want_k1 = chunks * (rec["runs"] + 1) + probe + selftest_k1
+    fps = rec["fps_runs"]
+    line = io.StringIO()
+    bench._best.update(rec)
+    with contextlib.redirect_stdout(line):
+        bench._emit(rec["fps"])
+    log(f"bench line: {line.getvalue().strip()}")
+    log(f"bench: {rec['runs']} runs of {n_frames} frames in {wall:.1f} s, "
+        f"frames/s best {max(fps):.2f}, median {median(fps):.2f}, "
+        f"min {min(fps):.2f}; compute_fps {rec['compute_fps']}; d2h MB/s "
+        f"{json.dumps([round(v, 1) for v in rec['d2h_MBps']])}; K1 "
+        f"{launched['raster_flat']} launches ({chunks} x {rec['runs'] + 1} "
+        f"calls + {probe} probe frame programs + {selftest_k1} selftest); "
+        f"{card}")
+    if rec["raster_parity"] != "ok":
+        raise AssertionError(f"bench raster_parity {rec['raster_parity']}")
+    if not (rec["runs"] >= BENCH_MIN_RUNS and np.isfinite(fps).all()
+            and len(fps) == rec["runs"] and n_frames == 201):
+        raise AssertionError(f"bench runs {rec['runs']}, frames "
+                             f"{n_frames}, fps {fps}")
+    if rec["compute_fps"] is not None and not np.isfinite(
+            rec["compute_fps"]):
+        raise AssertionError(f"bench compute_fps {rec['compute_fps']}")
+    if launched["raster_flat"] != want_k1:
+        raise AssertionError(f"bench K1 launches {launched['raster_flat']},"
+                             f" not {want_k1}")
+    main_k1 = launched["raster_flat"] - selftest_k1
+
+    # (b) the graft entry's frame step
+    frame_step, args = graft_entry.entry(dev, cfg)
+    reset_counts()
+    out = frame_step(*args)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["raster_flat"] != 1 or sum(launched.values()) != 1:
+        raise AssertionError(f"entry launches {launched}: K1 once")
+    main_k1 += 1
+    gen, coeff, angles, background, face3d_ref, fg_ref = args
+    entry_face = bfm.synthetic_bfm(num_theta=graft_entry.ENTRY_GRID,
+                                   num_phi=graft_entry.ENTRY_GRID, seed=0)
+    s = cfg.pixrefer.img_size
+    c = coeff.shape[0]
+    got = torch.clamp(out * 255.0, 0, 255).to(torch.uint8)
+    identity = graft_entry.entry_identity(cfg)
+    idx = torch.arange(c, device=dev)
+    diffs = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("served bf16", torch.bfloat16)):
+        synth = syn.Synthesizer(cfg, entry_face, trees[0], gen.state_dict(),
+                                chunk=c, gan_dtype=dtype,
+                                transfer_format="rgb8", device=dev)
+        with torch.inference_mode():
+            want = synth.frame_program_for(identity)(
+                coeff, angles, background, idx, face3d_ref, fg_ref)
+        d = (got.int() - want.int()).abs()
+        diffs[label] = (float(d.float().mean()), int(d.max()))
+        synth.close()
+    log(f"graft entry: frame step {tuple(out.shape)} {out.dtype}, K1 1 "
+        f"launch; uint8 |diff| against Synthesizer.frame_program_for at "
+        f"float32 mean {diffs['float32'][0]:.4g} max {diffs['float32'][1]} "
+        f"codes (band: mean < {ENTRY_MEAN_CODES}); the served bf16 program "
+        f"mean {diffs['served bf16'][0]:.4g} max {diffs['served bf16'][1]} "
+        f"(not gated on these inputs); {card}")
+    if not (torch.isfinite(out).all() and out.shape == (c, s, s, 3)):
+        raise AssertionError("entry frames not finite or mis-shaped")
+    if not diffs["float32"][0] < ENTRY_MEAN_CODES:
+        raise AssertionError(f"entry frames off the frame program: {diffs}")
+    del gen, args, frame_step
+    torch.cuda.empty_cache()
+
+    # (c) the multi-rank dryrun, two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(2, device=dev)
+    log(f"graft dryrun_multichip(2): two gloo ranks on one card, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": main_k1, "fps_runs": fps}
 
 
 def main():
@@ -3459,6 +3611,11 @@ def main():
     exp_run = phase_experiments(dev, counts, reset_counts, card)
     log(f"phase 25 (experiments) {time.perf_counter() - t0:.1f} s")
 
+    # ---- 26. the benchmark and the graft entry points ----------------------
+    t0 = time.perf_counter()
+    bench_run = phase_bench(cfg, trees, dev, counts, reset_counts, card)
+    log(f"phase 26 (bench, graft entry) {time.perf_counter() - t0:.1f} s")
+
     pallas = "voicepuppet_tpu/ops/raster_pallas.py"
     kernels = [{
         "name": name,
@@ -3476,7 +3633,7 @@ def main():
         ("raster_flat", f"{pallas}:126",
          launches + bfm_run["grid_launches"] + pf_run["launches"]
          + prep_run["launches"] + shard_run["launches"]
-         + exp_run["launches"],
+         + exp_run["launches"] + bench_run["launches"],
          max(max_abs_err, pf_run["err"]), k_ms, p_ms, bound, bound_by),
         ("raster_grouped", f"{pallas}:337", k4_launches, k4_err, k4_ms,
          p4g_ms, bound, bound_by),

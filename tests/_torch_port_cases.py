@@ -763,3 +763,22 @@ def sharded_serving_rank(mesh, states, cases, units):
             out["moments"] = sp.moments(part.t).numpy()
             out["bn_rows"] = sp.bn(bn, part).t.numpy()
     return out
+
+
+def histogram_rank(mesh, cfg, component, batch, log_dir):
+    """One rank of an ATNet fit with gradient histograms at interval 1:
+    every rank passes its own logger (``<log_dir>/rank<r>``), the fit
+    logs on rank 0 alone.  Returns the rank's flat averaged gradient."""
+    import os
+    import torch
+    from voicepuppet_torch.parallel.mesh import shard_batch
+    from voicepuppet_torch.train.atnet_trainer import ATNetTrainer
+    from voicepuppet_torch.train.metrics import MetricsLogger
+    logger = MetricsLogger(os.path.join(log_dir, f"rank{mesh.rank}"),
+                           "atnet", print_every=0, histogram_interval=1)
+    tr = ATNetTrainer(cfg, component, width_mult=DP_WIDTH, mesh=mesh)
+    state = tr.fit(tr.init_state(), iter([shard_batch(batch, mesh)]), 1,
+                   logger)
+    logger.close()
+    return torch.cat([p.grad.reshape(-1) for p in state.model.parameters()
+                      if p.grad is not None]).numpy()

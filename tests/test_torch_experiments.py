@@ -39,7 +39,8 @@ from voicepuppet_tpu.pipeline import streaming as jstream
 from voicepuppet_tpu.pipeline import synthesize as jsyn
 
 from voicepuppet_torch import weights
-from voicepuppet_torch.experiments import (profile_decode,
+from voicepuppet_torch.experiments import (gen_bf16_inputs,
+                                           profile_decode,
                                            profile_frame_tail, profile_pack,
                                            profile_pack_inprogram,
                                            profile_serving,
@@ -87,6 +88,21 @@ def test_profile_frame_tail_runs():
     out = profile_frame_tail.main(TINY + ["--chunk", "2", "--k", "2",
                                           "--rounds", "1"])
     assert "frame_program_whole" in out and "tail_whole" in out
+
+
+def test_gen_bf16_inputs_runs():
+    """The served bf16 generator against float32 by input set at the
+    tests' widths: six sets, 17 norms each, finite distances; the
+    bottleneck norm (9, 1² at 256²) averages one element per frame."""
+    out = gen_bf16_inputs.main(TINY)
+    assert set(out) == {"zero", "fg", "face", "refs", "zero32", "refs32"}
+    for r in out.values():
+        assert len(r["layers"]) == 17
+        assert 0 < r["mean_codes"] < r["max_codes"] < np.inf
+        assert all(np.isfinite([v["contrast"], v["rel_err"]]).all()
+                   for v in r["layers"])
+    assert out["zero"]["layers"][9]["elements"] == 4
+    assert out["refs32"]["layers"][9]["elements"] == 32
 
 
 def test_corner_basis_matches_the_jax_decode_corners():

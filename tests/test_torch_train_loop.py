@@ -486,7 +486,7 @@ def test_step_loop_rows_cadence_and_dropout_stream(stride):
     class Profiler:
         seen, closed = [], False
 
-        def step(self, step):
+        def step(self, step, k=1):
             self.seen.append(step)
 
         def close(self):
@@ -556,3 +556,186 @@ def test_fit_steps_per_call_logs_every_step(small, tmp_path, k):
     assert evals == want_eval
     assert [r[0] for r in rows if "eval_loss" in r[1]] == want_eval
     assert ckpt.steps() == [2, 4]
+
+
+# ---- the profiler window and the gradient histograms ---------------------------
+
+@pytest.mark.parametrize("calls,k", [((0, 4, 8), 4), ((0, 1, 2, 3), 1),
+                                     ((0, 2, 4), 2)])
+def test_profiler_hook_window_inside_a_dispatch(tmp_path, calls, k):
+    """A window [2, 3) that lies inside one dispatch of K = 4 steps
+    (step() at 0, 4, 8) is traced: the trace opens at the dispatch that
+    overlaps it and closes at the first one past it.  (The JAX hook
+    writes nothing here: it compares the dispatch's first step only.)"""
+    hook = ProfilerHook(str(tmp_path), start_step=2, num_steps=1)
+    for step in calls:
+        hook.step(step, k)
+        torch.ones(64).sum()
+    assert hook.path == str(tmp_path / "trace_2.json")
+    assert os.path.getsize(hook.path) > 0
+
+
+@pytest.mark.parametrize("loop", ["step_loop", "bfmnet"])
+def test_profiler_trace_written_when_fit_raises(small, tmp_path, loop):
+    """A fit that raises still closes its profiler and writes the
+    trace."""
+
+    def failing(batches):
+        yield next(batches)
+        raise RuntimeError("data source failed")
+
+    hook = ProfilerHook(str(tmp_path), start_step=0, num_steps=10)
+    if loop == "bfmnet":
+        cfg, fm = small
+        tr = BFMNetTrainer(cfg, fm, device="cpu")
+        with pytest.raises(RuntimeError, match="data source"):
+            tr.fit(tr.init_state(), failing(_stream(0)), 3, profiler=hook)
+    else:
+        class Trainer(StepLoop):
+            device = torch.device("cpu")
+
+            def train_step(self, state, batch, generator):
+                state.step += 1
+                return state, {"loss": torch.tensor(float(batch))}
+
+        class State:
+            step = 0
+
+        with pytest.raises(RuntimeError, match="data source"):
+            Trainer().fit(State(), failing(iter(range(5))), 3,
+                          profiler=hook)
+    assert hook.path == str(tmp_path / "trace_0.json")
+    assert os.path.getsize(hook.path) > 0
+
+
+def _jax_tags(group, tree, exclude=()):
+    """{tag: leaf size} of the JAX fits' gradient histograms over a params
+    tree (``voicepuppet_tpu/train/metrics.py`` log_histograms)."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        parts = [str(getattr(p, "key", getattr(p, "name", p)))
+                 for p in path]
+        tag = "/".join([group] + parts)
+        if not any(e in tag for e in exclude):
+            out[tag + "/gradients"] = int(np.prod(leaf.shape))
+    return out
+
+
+def _histograms(log_dir, name):
+    """{step: {tag: element count}} of the histograms in ``log_dir``'s
+    event files."""
+    out = {}
+    for path in glob.glob(os.path.join(str(log_dir), "tb", name,
+                                       "events.out.tfevents.*")):
+        for step, values in ttb.read_events(path):
+            for tag, v in values.items():
+                if tag.endswith("/gradients"):
+                    out.setdefault(step, {})[tag] = int(v["num"])
+    return out
+
+
+def _atnet_case():
+    from voicepuppet_tpu.models import atnet as jat
+    from _torch_port_cases import DP_WIDTH
+    jcfg = jax_cfg()
+    comp = jat.synthetic_pca_component(6)
+    b, t = 2, 4
+    rng = np.random.RandomState(3)
+    batch = (rng.randn(b, t, 136).astype(np.float32) * 0.1,
+             rng.rand(b, t, 1).astype(np.float32),
+             rng.randn(b, t, 3).astype(np.float32) * 0.1,
+             rng.randn(b, t * 5, 80).astype(np.float32),
+             rng.randn(b, 136).astype(np.float32) * 0.1,
+             np.array([t, 3], np.int32))
+    shapes = jax.eval_shape(lambda: jat.ATNet(
+        jcfg.atnet, comp, width_mult=DP_WIDTH).init(
+            jax.random.PRNGKey(0), *(jnp.asarray(x) for x in batch[1:]),
+            train=False))
+    return jcfg, comp, batch, _jax_tags("atnet", shapes["params"],
+                                        ("BatchNorm", "bn"))
+
+
+def _pixflow_case():
+    from voicepuppet_tpu.models import pixflow as jpf
+    from voicepuppet_tpu.models import pixrefer as jpx
+    jcfg = jax_cfg()
+    s, b = jcfg.pixflow.img_size, jcfg.pixflow.batch_size
+    rng = np.random.RandomState(4)
+    batch = (rng.rand(b, s, s, 6).astype(np.float32),
+             rng.rand(b, s, s, 6).astype(np.float32),
+             (rng.rand(b, s, s, 3) > 0.5).astype(np.float32))
+    key = jax.random.PRNGKey(0)
+    g = jax.eval_shape(lambda: jpf.PixFlowNet(jcfg.pixflow, axis_name=None)
+                       .init({"params": key, "dropout": key},
+                             jnp.zeros((1, s, s, 6)),
+                             jnp.zeros((1, s, s, 6)), train=False))
+    d = jax.eval_shape(lambda: jpx.Discriminator(jcfg.pixflow.ndf).init(
+        key, jnp.zeros((1, s, s, 3)), jnp.zeros((1, s, s, 3))))
+    return jcfg, batch, {**_jax_tags("discriminator", d["params"]),
+                         **_jax_tags("generator", g["params"])}
+
+
+def _fit_with_histograms(name, log_dir, interval, steps=1):
+    """A tiny ``name`` fit of ``steps`` steps on the CPU with a logger at
+    ``interval``; returns (its histograms, the JAX fit's {tag: size})."""
+    logger = MetricsLogger(str(log_dir), name, print_every=0,
+                           histogram_interval=interval)
+    if name == "atnet":
+        from voicepuppet_torch.train.atnet_trainer import ATNetTrainer
+        from _torch_port_cases import DP_WIDTH
+        jcfg, comp, batch, want = _atnet_case()
+        tr = ATNetTrainer(port_cfg(jcfg), comp, width_mult=DP_WIDTH,
+                          device="cpu")
+    else:
+        from voicepuppet_torch.train.pixflow_trainer import PixFlowTrainer
+        jcfg, batch, want = _pixflow_case()
+        tr = PixFlowTrainer(port_cfg(jcfg), device="cpu")
+    tr.fit(tr.init_state(), iter([batch] * steps), steps, logger)
+    logger.close()
+    return _histograms(log_dir, name), want, tr.step_stride
+
+
+@pytest.mark.parametrize("name", ["pixflow", "atnet"])
+def test_fit_gradient_histograms_match_the_jax_tags(tmp_path, name):
+    """At interval 1 a PixFlow fit (D and G trees) and an ATNet fit (its
+    batch norms left out) write one histogram per gradient leaf of the
+    JAX fit's trees: the same tags, taken from the JAX parameter trees by
+    ``jax.eval_shape`` with no compile, and each histogram's element
+    count the JAX leaf's size."""
+    got, want, stride = _fit_with_histograms(name, tmp_path, 1)
+    assert list(got) == [stride]
+    assert got[stride] == want
+    if name == "atnet":
+        assert not any("bn" in t or "BatchNorm" in t for t in got[stride])
+
+
+@pytest.mark.parametrize("name", ["pixflow", "atnet"])
+def test_fit_gradient_histograms_off_cadence(tmp_path, name, monkeypatch):
+    """Interval 3 and one step: no step on the cadence, no histogram, and
+    the gradients are not gathered at all."""
+    from voicepuppet_torch.train.atnet_trainer import ATNetTrainer
+    from voicepuppet_torch.train.pixflow_trainer import PixFlowTrainer
+    gathered = []
+    for cls in (ATNetTrainer, PixFlowTrainer):
+        monkeypatch.setattr(
+            cls, "gradient_groups",
+            lambda self, state, _f=cls.gradient_groups: (
+                gathered.append(state.step), _f(self, state))[1])
+    got, _, _ = _fit_with_histograms(name, tmp_path, 3)
+    assert got == {} and gathered == []
+    # the scalars are still written
+    assert glob.glob(str(tmp_path / "tb" / name / "events.out.tfevents.*"))
+
+
+def test_fit_gradient_histograms_rank_zero_alone(tmp_path):
+    """Two gloo ranks of an ATNet fit, each with a logger: rank 0 writes
+    the averaged gradients' histograms with the JAX tags, rank 1 nothing;
+    both ranks hold the same averaged gradients."""
+    from voicepuppet_torch.parallel.spawn import run_ranks
+    from _torch_port_cases import histogram_rank
+    jcfg, comp, batch, want = _atnet_case()
+    ranks = run_ranks(histogram_rank, 2, port_cfg(jcfg), comp, batch,
+                      str(tmp_path))
+    assert np.array_equal(ranks[0], ranks[1])
+    assert _histograms(tmp_path / "rank0", "atnet") == {1: want}
+    assert _histograms(tmp_path / "rank1", "atnet") == {}

@@ -366,3 +366,17 @@ def render_texture(vertices: torch.Tensor, triangles: torch.Tensor,
     """UV-textured rasterization (ref: mesh_core.cpp:234-333)."""
     out = rasterize_triangles(vertices, triangles, h, w)
     return sample_texture(out, texture, tex_coords, tex_triangles, bilinear)
+
+
+def vertex_normals(tri_normal: torch.Tensor, triangles: torch.Tensor,
+                   num_vertices: int) -> torch.Tensor:
+    """One-ring scatter-add of per-triangle normals onto vertices (ref:
+    mesh_core.cpp:85-105; JAX ``face3d/raster.py:353``): tri_normal
+    [..., F, 3], triangles [F, 3] -> [..., num_vertices, 3] in
+    ``tri_normal``'s dtype, the triangles' first, second, then third
+    corners added in turn."""
+    out = tri_normal.new_zeros(tri_normal.shape[:-2] + (num_vertices, 3))
+    tri = triangles.to(device=tri_normal.device, dtype=torch.long)
+    for k in range(3):
+        out.index_add_(-2, tri[:, k], tri_normal)
+    return out

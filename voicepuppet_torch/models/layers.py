@@ -206,6 +206,10 @@ class TFBatchNorm(SyncBN):
     by ``ra <- 0.999 ra + 0.001 batch`` (flax's momentum; ``F.batch_norm``
     would store the unbiased variance, with one minus this momentum)."""
 
+    # the flax module nests its variables one scope deeper
+    # (``weights.state_key_for`` folds it)
+    flax_scope = "BatchNorm_0"
+
     def __init__(self, ch: int, epsilon: float = 1e-3,
                  momentum: float = 0.999):
         super().__init__()

@@ -462,11 +462,22 @@ def check_against_plain(vertices: torch.Tensor, colors: torch.Tensor,
     CUDA tensors, bit for bit: K1 (flat), K4 at each of ``groups`` (equal
     to K1), K3 (interpolated depth) and K5 at each of ``groups`` (equal to
     K3).  Returns the flat raster's covered pixel count."""
-    from voicepuppet_torch.face3d import raster as plain
-    from voicepuppet_torch.ops import raster as kern
     if vertices.device.type != "cuda":
         raise ValueError("the selftest compares the CUDA kernel: pass "
                          "tensors on a CUDA device")
+    return _check_entry_points(vertices, colors, triangles, h, w, label,
+                               groups)
+
+
+def _check_entry_points(vertices: torch.Tensor, colors: torch.Tensor,
+                        triangles: torch.Tensor, h: int, w: int,
+                        label: str, groups=GROUP_SIZES) -> int:
+    """:func:`check_against_plain` on any device: on CPU tensors the entry
+    points dispatch to the plain versions, so what is held there is the
+    dispatch and the plain grouped and interpolated forms against the
+    flat and per-triangle ones."""
+    from voicepuppet_torch.face3d import raster as plain
+    from voicepuppet_torch.ops import raster as kern
     flat = plain.rasterize_winner(vertices, triangles, h, w)
     want_img, want_mask = plain.flat_color_image(flat[0], colors, triangles)
     _expect_pair(kern.rasterize_winner(vertices, triangles, h, w), flat,
@@ -569,12 +580,18 @@ def _case_tensors(make, device):
 
 
 def run_selftest(device="cuda") -> Dict[str, int]:
-    """Every quirk case on ``device``: {case: covered pixels}.  Raises
-    AssertionError on the first difference."""
+    """Every quirk case on ``device``: {case: covered pixels}.  On a CUDA
+    device every kernel against its plain version
+    (:func:`check_against_plain`); on the CPU, where the entry points run
+    the plain versions, the same checks of their dispatch and of the
+    plain forms against one another.  Raises AssertionError on the first
+    difference."""
+    cuda = torch.device(device).type == "cuda"
+    check = check_against_plain if cuda else _check_entry_points
     report = {}
     for name, make in {**CASES, **GROUPED_CASES, **INTERP_CASES}.items():
         vt, ct, tt, h, w = _case_tensors(make, device)
-        covered = check_against_plain(vt, ct, tt, h, w, name)
+        covered = check(vt, ct, tt, h, w, name)
         if covered == 0:
             raise AssertionError(f"{name}: the case draws nothing")
         report[name] = covered

@@ -11,6 +11,10 @@ schedule).  The batch is ``data.generators.ATNetBatcher``'s: (landmark
 [B,T,136], ears [B,T,1], poses [B,T,3], mfccs [B,T*5,80], example
 landmark [B,136], seq_len [B]).
 
+Gradient histograms (``log_gradients``; None asks the logger): ``fit``
+writes the gradients as ``atnet/<flax path>/gradients`` at the logger's
+cadence, the batch norms' left out (train_atnet.py:96-101).
+
 Data parallelism (``mesh``): as the BFMNet trainer's (sync-BN forward on
 this rank's rows, one gradient average before clip and Adam, the loss
 averaged over the ranks, rank 0 alone logging and saving).
@@ -41,7 +45,7 @@ from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
                                              group_of, mesh_global_batch,
                                              pmean_metric, replicate)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
-from voicepuppet_torch.train.loop import StepLoop
+from voicepuppet_torch.train.loop import StepLoop, flax_gradients
 from voicepuppet_torch.train.optim import reference_adam
 from voicepuppet_torch.train.state import TrainState
 
@@ -63,13 +67,16 @@ class ATNetTrainer(StepLoop):
     """``tx``: a factory, parameters -> optimizer (default: the reference
     Adam with the config's schedule and clip); the parity tests pass
     SGD.  ``mesh``: the data group (None: this process alone, on
-    ``device``)."""
+    ``device``).  ``log_gradients``: True or False turns ``fit``'s
+    gradient histograms on or off; None asks the logger."""
 
     def __init__(self, cfg: Config, pca_component: np.ndarray,
                  width_mult: float = 1.0, tx=None, device="cuda",
-                 mesh: Optional[DataGroup] = None):
+                 mesh: Optional[DataGroup] = None,
+                 log_gradients: Optional[bool] = None):
         self.cfg = cfg
         self.mesh = mesh
+        self.log_gradients = log_gradients
         self.device = torch.device(mesh.device if mesh is not None
                                    else device)
         full_fp32_matmuls()
@@ -116,8 +123,13 @@ class ATNetTrainer(StepLoop):
         loss.backward()
         all_reduce_grads_(state.model.parameters(), group_of(self.mesh))
         state.optimizer.step()
-        state.step += 1
+        state.step += self.step_stride
         return state, pmean_metric({"loss": loss.detach()}, self.mesh)
+
+    def gradient_groups(self, state: TrainState):
+        """The last step's gradients for the histograms, the batch norms'
+        excluded as the reference does."""
+        return {"atnet": flax_gradients(state.model)}, ("BatchNorm", "bn")
 
     @torch.no_grad()
     def infer(self, state: TrainState, ears, poses, mfccs, example_lmk,

@@ -166,39 +166,41 @@ class BFMNetTrainer:
                     warnings.warn(f"steps_per_call={k} exceeds {label}={iv}:"
                                   " that cadence coarsens to once per call")
         done = 0
-        while done < num_steps:
+        try:
+            while done < num_steps:
+                kk = min(k, num_steps - done)
+                if profiler is not None:
+                    profiler.step(state.step, kk)
+                state, stacked = self.train_multi_step(
+                    state, [next(batches) for _ in range(kk)], generator)
+                done += kk
+                step = state.step
+                if logger is not None and main:
+                    keys = list(stacked)
+                    vals = torch.stack([stacked[n].float() for n in keys],
+                                       1).cpu().numpy()
+                    for i, row in enumerate(vals):
+                        logger.log(step - kk + i + 1,
+                                   **dict(zip(keys, map(float, row))))
+                if eval_batches is not None and (
+                        step // tcfg.eval_interval
+                        > (step - kk) // tcfg.eval_interval):
+                    if main:
+                        eval_batch = next(eval_batches)
+                        eval_loss, eval_out = self.eval_loss(state, eval_batch)
+                        if logger is not None:
+                            logger.log(step, eval_loss=eval_loss)
+                        if eval_hook is not None:
+                            eval_hook(step, state, eval_batch, eval_out)
+                    if self.mesh is not None:
+                        self.mesh.barrier()
+                if ckpt is not None and step > 0 and (
+                        step // ckpt.save_interval
+                        > (step - kk) // ckpt.save_interval):
+                    ckpt.save(step, state)
+        finally:
             if profiler is not None:
-                profiler.step(state.step)
-            kk = min(k, num_steps - done)
-            state, stacked = self.train_multi_step(
-                state, [next(batches) for _ in range(kk)], generator)
-            done += kk
-            step = state.step
-            if logger is not None and main:
-                keys = list(stacked)
-                vals = torch.stack([stacked[n].float() for n in keys],
-                                   1).cpu().numpy()
-                for i, row in enumerate(vals):
-                    logger.log(step - kk + i + 1,
-                               **dict(zip(keys, map(float, row))))
-            if eval_batches is not None and (
-                    step // tcfg.eval_interval
-                    > (step - kk) // tcfg.eval_interval):
-                if main:
-                    eval_batch = next(eval_batches)
-                    eval_loss, eval_out = self.eval_loss(state, eval_batch)
-                    if logger is not None:
-                        logger.log(step, eval_loss=eval_loss)
-                    if eval_hook is not None:
-                        eval_hook(step, state, eval_batch, eval_out)
-                if self.mesh is not None:
-                    self.mesh.barrier()
-            if ckpt is not None and step > 0 and (
-                    step // ckpt.save_interval
-                    > (step - kk) // ckpt.save_interval):
-                ckpt.save(step, state)
-        if profiler is not None:
-            profiler.close()
+                profiler.close()
         return state
 
 

@@ -29,11 +29,15 @@ class MetricsLogger:
     images under ``<log_dir>/images`` and gradient histograms."""
 
     def __init__(self, log_dir: str, name: str = "train",
-                 print_every: int = 1, tensorboard: bool = True):
+                 print_every: int = 1, tensorboard: bool = True,
+                 histogram_interval: int = 100):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{name}_metrics.jsonl")
         self._f = open(self.path, "a")
         self.print_every = print_every
+        # gradient histograms at the reference's summary cadence
+        # (train_pixflow.py:131-134); 0 turns them off
+        self.histogram_interval = histogram_interval
         self._t0 = time.time()
         self._tb = None
         if tensorboard:
@@ -75,18 +79,41 @@ class MetricsLogger:
         """One histogram per gradient: ``groups`` maps a group name (e.g.
         "generator") to ``{parameter name: gradient}``; tags are
         ``<group>/<name>/gradients`` (train_pixflow.py:113-115), skipping
-        tags containing any ``exclude`` substring."""
+        tags containing any ``exclude`` substring.  The gradients reach
+        the host in one copy."""
         if self._tb is None:
             return
-        for group, grads in groups.items():
-            for name, g in grads.items():
-                tag = f"{group}/{name}"
-                if g is None or any(e in tag for e in exclude):
-                    continue
+        kept = [(f"{group}/{name}", g) for group, grads in groups.items()
+                for name, g in grads.items()
+                if g is not None
+                and not any(e in f"{group}/{name}" for e in exclude)]
+        if kept:
+            flat = torch.cat([g.detach().float().reshape(-1)
+                              for _, g in kept]).cpu().numpy()
+            ends = np.cumsum([g.numel() for _, g in kept])
+            for (tag, g), values in zip(kept, np.split(flat, ends[:-1])):
                 self._tb.histogram(tag + "/gradients",
-                                   g.detach().float().cpu().numpy(),
-                                   int(step))
+                                   values.reshape(g.shape), int(step))
         self._tb.flush()
+
+    @property
+    def wants_histograms(self) -> bool:
+        """True when histograms would be written at all: the trainers ask
+        before they gather gradients for the logger."""
+        return self._tb is not None and bool(self.histogram_interval)
+
+    def histogram_due(self, step: int) -> bool:
+        """True at the steps that are multiples of ``histogram_interval``
+        (when histograms are written at all): a caller gathers the
+        gradients only then."""
+        return (self.wants_histograms
+                and int(step) % self.histogram_interval == 0)
+
+    def maybe_log_histograms(self, step: int, groups, exclude: tuple = ()):
+        """:meth:`log_histograms` at the steps :meth:`histogram_due`
+        names; between them nothing is read from the device."""
+        if self.histogram_due(step):
+            self.log_histograms(int(step), groups, exclude)
 
     def close(self):
         self._f.close()
@@ -97,9 +124,13 @@ class MetricsLogger:
 class ProfilerHook:
     """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity) of
     the steps [start, start + count), written as a Chrome trace
-    ``<log_dir>/trace_<start>.json``.  ``step()`` is called with the
-    global step before each dispatch, so with ``steps_per_call`` K the
-    window snaps outward to whole dispatches."""
+    ``<log_dir>/trace_<start>.json``.  ``step(step, k)`` is called before
+    each dispatch with the global step and the number of global steps the
+    dispatch covers, ``[step, step + k)``: the trace opens at the first
+    dispatch that overlaps the window and closes at the first that starts
+    at or past its end, so the window snaps outward to whole dispatches.
+    (The JAX package's hook compares only the dispatch's first step and
+    misses a window that lies inside one dispatch.)"""
 
     def __init__(self, log_dir: str, start_step: int = 0,
                  num_steps: int = 0):
@@ -109,12 +140,12 @@ class ProfilerHook:
         self._prof = None
         self.path = None
 
-    def step(self, step: int):
+    def step(self, step: int, k: int = 1):
         if self.stop <= self.start:
             return
         if step >= self.stop:
             self.close()
-        elif step >= self.start and self._prof is None \
+        elif step + k > self.start and self._prof is None \
                 and self.path is None:
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU]

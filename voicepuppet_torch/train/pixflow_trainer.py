@@ -20,6 +20,12 @@ heads stay float32.  Float32 convs and matmuls run in full float32 (TF32
 off).  The optimizers are PixRefer's (``gan_optimizer``: Adam beta1 0.5,
 lr 3e-4 decaying 0.999 every 1000 global steps).
 
+Gradient histograms (``log_gradients``; None asks the logger): ``fit``
+writes D's and G's gradients as ``discriminator/<flax path>/gradients``
+and ``generator/...`` at the logger's cadence (train_pixflow.py:113-115).
+G's backward takes ``inputs=gen.parameters()``, so D's gradients of the
+step stay in ``.grad`` until it ends.
+
 Data parallelism (``mesh``): as the PixRefer trainer's.  Both G forwards
 of a step (D's constant under ``no_grad``, then G's loss) normalize with
 the group's moments, as both are sync-BN in the JAX step
@@ -47,7 +53,7 @@ from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
                                              pmean_metric, replicate,
                                              shard_batch_local)
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
-from voicepuppet_torch.train.loop import StepLoop
+from voicepuppet_torch.train.loop import StepLoop, flax_gradients
 from voicepuppet_torch.train.optim import gan_optimizer
 from voicepuppet_torch.train.pixrefer_trainer import DTYPES, _mark
 from voicepuppet_torch.train.state import GANTrainState
@@ -56,13 +62,19 @@ from voicepuppet_torch.train.state import GANTrainState
 class PixFlowTrainer(StepLoop):
     """``g_tx`` / ``d_tx``: factories, parameters -> optimizer (default:
     ``gan_optimizer``); the parity tests pass SGD.  ``mesh``: the data
-    group (None: this process alone, on ``device``)."""
+    group (None: this process alone, on ``device``).  ``log_gradients``:
+    True or False turns ``fit``'s gradient histograms on or off; None
+    asks the logger."""
+
+    step_stride = 2
 
     def __init__(self, cfg: Config, train_dtype: torch.dtype = torch.float32,
                  g_tx=None, d_tx=None, device="cuda",
-                 mesh: Optional[DataGroup] = None):
+                 mesh: Optional[DataGroup] = None,
+                 log_gradients: Optional[bool] = None):
         self.cfg = cfg
         self.mesh = mesh
+        self.log_gradients = log_gradients
         self.device = torch.device(mesh.device if mesh is not None
                                    else device)
         full_fp32_matmuls()
@@ -129,11 +141,16 @@ class PixFlowTrainer(StepLoop):
         all_reduce_grads_(gen.parameters(), group)
         state.g_optimizer.step()
         _mark(marks)
-        state.step += 2
+        state.step += self.step_stride
         metrics = {"discrim_loss": d_loss, "gen_loss": g_loss,
                    "gen_loss_GAN": gan_t, "gen_loss_L1": l1_t}
         return state, pmean_metric({k: v.detach()
                                     for k, v in metrics.items()}, self.mesh)
+
+    def gradient_groups(self, state: GANTrainState):
+        """The last step's D and G gradients for the histograms."""
+        return {"discriminator": flax_gradients(state.disc),
+                "generator": flax_gradients(state.gen)}, ()
 
     @torch.no_grad()
     def infer(self, state: GANTrainState, inputs, fg_inputs):

@@ -79,7 +79,10 @@ class PixReferTrainer:
     ``gan_optimizer``); the parity tests pass SGD.  ``vgg_weights_path``:
     a converted ``.npz`` or the released slim checkpoint; without one the
     trunk is drawn from ``torch.Generator().manual_seed(vgg_seed)``.
-    ``mesh``: the data group (None: this process alone, on ``device``)."""
+    ``mesh``: the data group (None: this process alone, on ``device``).
+    ``step_stride``: the global steps one D+G ``train_step`` advances."""
+
+    step_stride = 2
 
     def __init__(self, cfg: Config, vgg_weights_path: Optional[str] = None,
                  train_dtype: torch.dtype = torch.float32,
@@ -176,7 +179,7 @@ class PixReferTrainer:
         all_reduce_grads_(gen.parameters(), group)
         state.g_optimizer.step()
         _mark(marks)
-        state.step += 2
+        state.step += self.step_stride
         metrics = {"discrim_loss": d_loss, "gen_loss": g_loss,
                    "gen_loss_GAN": gan_t, "gen_loss_L1": l1_t,
                    "perceptual": perc}
@@ -220,45 +223,50 @@ class PixReferTrainer:
         main = self.mesh is None or self.mesh.is_main
         tcfg = self.cfg.pixrefer.training
         k = max(1, int(steps_per_call))
+        stride = self.step_stride
         if k > 1:
             for label, iv in (("summary_interval", tcfg.summary_interval),
                               ("save_interval",
                                ckpt.save_interval if ckpt else None)):
-                if iv and 2 * k > iv:
-                    warnings.warn(f"steps_per_call={k} (stride {2 * k}) "
+                if iv and stride * k > iv:
+                    warnings.warn(f"steps_per_call={k} (stride "
+                                  f"{stride * k}) "
                                   f"exceeds {label}={iv}: that cadence "
                                   "coarsens to once per call")
         done = 0
-        while done < num_steps:
+        try:
+            while done < num_steps:
+                kk = min(k, num_steps - done)
+                if profiler is not None:
+                    profiler.step(state.step, stride * kk)
+                got = [next(batches) for _ in range(kk)]
+                state, stacked = self.train_multi_step(state, got)
+                done += kk
+                step = state.step
+                if logger is not None and main:
+                    keys = list(stacked)
+                    vals = torch.stack([stacked[n].float() for n in keys],
+                                       1).cpu().numpy()
+                    for i, row in enumerate(vals):
+                        logger.log(step - stride * (kk - i - 1),
+                                   **dict(zip(keys, map(float, row))))
+                    if _hit_interval(step, stride, kk,
+                                     tcfg.summary_interval):
+                        # current render | target | output (ref:
+                        # train_pixrefer.py:101-131)
+                        inputs, fg_inputs, targets, _ = batch_to_device(
+                            got[-1], self.device)
+                        outputs, _ = self.infer(state, inputs[:1],
+                                                fg_inputs[:1], targets[:1])
+                        logger.log_image(step, "pixrefer", torch.cat(
+                            [inputs[0, ..., 3:6], targets[0],
+                             outputs[0].clamp(0, 1)], dim=1).cpu().numpy())
+                if ckpt is not None and step > 0 and _hit_interval(
+                        step, stride, kk, ckpt.save_interval):
+                    ckpt.save(step, state)
+        finally:
             if profiler is not None:
-                profiler.step(state.step)
-            kk = min(k, num_steps - done)
-            got = [next(batches) for _ in range(kk)]
-            state, stacked = self.train_multi_step(state, got)
-            done += kk
-            step = state.step
-            if logger is not None and main:
-                keys = list(stacked)
-                vals = torch.stack([stacked[n].float() for n in keys],
-                                   1).cpu().numpy()
-                for i, row in enumerate(vals):
-                    logger.log(step - 2 * kk + 2 * (i + 1),
-                               **dict(zip(keys, map(float, row))))
-                if _hit_interval(step, 2, kk, tcfg.summary_interval):
-                    # current render | target | output (ref:
-                    # train_pixrefer.py:101-131)
-                    inputs, fg_inputs, targets, _ = batch_to_device(
-                        got[-1], self.device)
-                    outputs, _ = self.infer(state, inputs[:1],
-                                            fg_inputs[:1], targets[:1])
-                    logger.log_image(step, "pixrefer", torch.cat(
-                        [inputs[0, ..., 3:6], targets[0],
-                         outputs[0].clamp(0, 1)], dim=1).cpu().numpy())
-            if ckpt is not None and step > 0 and _hit_interval(
-                    step, 2, kk, ckpt.save_interval):
-                ckpt.save(step, state)
-        if profiler is not None:
-            profiler.close()
+                profiler.close()
         return state
 
 

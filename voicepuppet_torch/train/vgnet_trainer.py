@@ -100,7 +100,7 @@ class VGNetTrainer(StepLoop):
         loss.backward(inputs=list(state.disc.parameters()))
         all_reduce_grads_(state.disc.parameters(), group_of(self.mesh))
         state.d_optimizer.step()
-        state.step += 1
+        state.step += self.step_stride
         return state, pmean_metric({"discriminator_loss": loss.detach()},
                                    self.mesh)
 
@@ -118,7 +118,7 @@ class VGNetTrainer(StepLoop):
         loss.backward(inputs=list(state.gen.parameters()))
         all_reduce_grads_(state.gen.parameters(), group_of(self.mesh))
         state.g_optimizer.step()
-        state.step += 1
+        state.step += self.step_stride
         return state, pmean_metric(
             {"generator_loss": loss.detach(), "bce_loss": bce.detach(),
              "pix_loss": pix.detach()}, self.mesh)

@@ -120,6 +120,28 @@ def state_key_for(path: Tuple[str, ...]) -> str:
     return ".".join(mods + [_LEAF_NAMES[path[-1]]])
 
 
+def flax_paths(module: torch.nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """The JAX path of each of ``module``'s parameters, by state_dict
+    key: the inverse of :func:`state_key_for` on parameters.  A
+    ``weight`` is a ``kernel`` (a Dense or a conv, two or four axes) or a
+    norm's ``scale`` (one axis); a module with a ``flax_scope``
+    (``TFBatchNorm``) puts its parameters under that scope."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        scope = tuple(mod_name.split(".")) if mod_name else ()
+        inner = getattr(mod, "flax_scope", None)
+        scope += (inner,) if inner else ()
+        for name, p in mod.named_parameters(recurse=False):
+            leaf = ("bias" if name == "bias" else "scale" if p.dim() == 1
+                    else "kernel")
+            key = f"{mod_name}.{name}" if mod_name else name
+            path = scope + (leaf,)
+            if state_key_for(path) != key:
+                raise KeyError(f"{key}: no JAX path maps onto it")
+            out[key] = path
+    return out
+
+
 def state_dict_from_flax(tree: Mapping,
                          module: Optional[torch.nn.Module] = None
                          ) -> Dict[str, torch.Tensor]:
