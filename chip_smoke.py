@@ -42,23 +42,28 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         K5 equal to K3.
   6. kernel times       each kernel beside its plain version and its bound,
                         at the shapes its path gives it; K4/K1 and K5/K3;
-                        K1 beside its former one-thread bbox walk (X2 at
-                        unroll 1, fb 1), bit for bit equal; one K1, K3 and
-                        old-walk call each split into its device launches
-                        (memset, pass 1, resolve) by torch.profiler, or a
-                        line saying it recorded none; the walk steps of
-                        both walks on these inputs (the CPU model of
-                        ops/raster_selftest.py).
+                        K1 beside X2 at unroll 1, fb 1 (K1's schedule in
+                        the probe's kernel), bit for bit equal, and the
+                        ratio "X2 (1,1) / K1"; one K1, K3 and X2 (1,1)
+                        call each split into its device launches (memset,
+                        pass 1, resolve) by torch.profiler, or a line
+                        saying it recorded none; the walk steps on these
+                        inputs (the CPU model of ops/raster_selftest.py).
   7. probe path         the raster A/B probes (ops/raster_probes.py): the
                         probe selftest on every quirk, grouped and interp
                         case and a band-fitting one; at the JAX profile
                         scripts' shapes (B = 16 at 224², the 189² and 192²
                         meshes) each probe bit for bit against its plain
-                        version, X2 against K1 at four settings, X1 against
-                        K1 off degenerate winners; then every profile entry
-                        point (voicepuppet_torch/experiments/) once at
-                        K = 2 and one round, where every probe must launch;
-                        probe times beside K1's, plain and bound.
+                        version, X2 against K1 at (1, 1) and four settings,
+                        X1 against K1 off degenerate winners; then every
+                        profile entry point (voicepuppet_torch/experiments/)
+                        once at K = 2 and one round, where every probe must
+                        launch; probe times beside K1's, plain and bound
+                        (X2 at (1, 1) and profile_raster3's settings, X3 at
+                        raster_selftest.REGACC_SETTINGS), each X2 and X3
+                        launch's registers, shared bytes and blocks an SM,
+                        and X3's union rectangles against whole bands (the
+                        CPU model).
   8. reference checks   the card against the port on the CPU (float32
                         everywhere): the full-width expression coefficients,
                         and whole frames at a small size (ngf 8, 256²); the
@@ -295,7 +300,7 @@ def device_split(fn, calls=5):
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = next((k for k in ("triangle_kernel", "unroll_kernel",
+        name = next((k for k in ("triangle_kernel", "unroll_walk_kernel",
                                  "resolve_kernel", "Memset") if k in evt.name),
                     evt.name[:48])
         n, total = split.get(name, (0, 0.0))
@@ -3302,26 +3307,27 @@ def main():
         f"(group 4, image and mask), K5/K3 {k5_ms / k3_ms:.3f} (group 4, "
         f"winner and depth); {card}")
 
-    # the in-run before: X2 at unroll 1, fb 1 is K1's former one-thread
-    # bbox walk; then each call split into its device launches
-    def old_walk():
+    # X2 at unroll 1, fb 1 is K1's schedule in the probe's kernel: its time
+    # beside K1's; then each call split into its device launches
+    def x2_k1_schedule():
         return probes.raster_u(verts, tri, 224, 224, fb=1, unroll=1)
 
     def k1_winner():
         return tops.rasterize_winner(verts, tri, 224, 224)
 
     with torch.inference_mode():
-        for a, b, part in zip(old_walk(), k1_winner(), ("winner", "depth")):
-            raster_selftest.expect_equal(a, b, f"old walk == K1 {part}")
+        for a, b, part in zip(x2_k1_schedule(), k1_winner(),
+                              ("winner", "depth")):
+            raster_selftest.expect_equal(a, b, f"X2 (1,1) == K1 {part}")
         k1w_ms = cuda_ms(k1_winner, 50, 5)
-        old_ms = cuda_ms(old_walk, 50, 5)
+        x211_ms = cuda_ms(x2_k1_schedule, 50, 5)
         splits = {
             "K1 render_colors_auto": lambda: render_colors_auto(
                 verts, colors, tri, h=224, w=224),
             "K1 rasterize_winner": k1_winner,
             "K3 rasterize_winner_interp": lambda: tops.rasterize_winner_interp(
                 verts, tri, 224, 224),
-            "old walk raster_u(unroll=1, fb=1)": old_walk,
+            "X2 (1,1) raster_u(unroll=1, fb=1)": x2_k1_schedule,
         }
         for label, fn in splits.items():
             split = device_split(fn)
@@ -3330,9 +3336,9 @@ def main():
                                for k, (n, us) in split.items()})
                    if split else "the profiler recorded no device event")
                 + f" (5 calls, torch.profiler); {card}")
-    log(f"raster B={CHUNK} winner + depth: K1 {k1w_ms:.4f} ms, the old "
-        f"one-thread walk (unroll_kernel<1,1>) {old_ms:.4f} ms, bit for bit "
-        f"equal; K1 / old {k1w_ms / old_ms:.3f}; {card}")
+    log(f"raster B={CHUNK} winner + depth: K1 {k1w_ms:.4f} ms, X2 (1,1) "
+        f"(unroll_walk_kernel<1,1>, K1's schedule) {x211_ms:.4f} ms, bit "
+        f"for bit equal; X2 (1,1) / K1 {x211_ms / k1w_ms:.3f}; {card}")
     # the walk steps of these inputs (ops/raster_selftest.py's CPU model)
     x0, y0, bw, bh = raster_selftest.walk_entries(verts.cpu().numpy(),
                                                   tri.cpu().numpy(), 224, 224)
@@ -3352,7 +3358,8 @@ def main():
     torch.cuda.synchronize()
     log(f"probe parity: {len(probe_report)} cases bit-exact probe == plain "
         f"(X1 both modes, X2 at fb x unroll {probes.UNROLLS}, X3 at "
-        f"{raster_selftest.REGACC_SETTINGS}; X1 == K1 off degenerate "
+        f"{raster_selftest.REGACC_SETTINGS + raster_selftest.REGACC_LISTS};"
+        f" X1 == K1 off degenerate "
         f"winners; X3 == K1 on band_fitting) in "
         f"{time.perf_counter() - t0:.2f} s; pixels K1 gives degenerate "
         f"triangles: {json.dumps(probe_report)}")
@@ -3379,7 +3386,8 @@ def main():
             x1[0], pk1[0], pv, ptri, "probe mesh")
         x1_err = float((x1[1] - x1_want[1]).abs().max())
         x2_err = 0.0
-        for fb, unroll in profile_raster3.SETTINGS:
+        x2_settings = ((1, 1),) + profile_raster3.SETTINGS   # (fb, unroll)
+        for fb, unroll in x2_settings:
             x2 = probes.raster_u(pv, ptri, 224, 224, fb=fb, unroll=unroll)
             torch.cuda.synchronize()
             raster_selftest.expect_equal(x2[0], pk1[0],
@@ -3403,7 +3411,7 @@ def main():
     log(f"probe parity: B={PROBE_BATCH} 224², {ptri.shape[0]} triangles: "
         f"X1 == plain in both modes, == K1 off degenerate winners ({x1_deg} "
         f"px won by degenerate triangles in K1); X2 == K1 at (fb, unroll) "
-        f"{profile_raster3.SETTINGS}; {rtri.shape[0]} triangles: X3 == "
+        f"{x2_settings}; {rtri.shape[0]} triangles: X3 == "
         f"plain at {raster_selftest.REGACC_SETTINGS}, pixels off K1 "
         f"{json.dumps(x3_off_k1)}")
 
@@ -3435,7 +3443,7 @@ def main():
                          50, 5)
         x2_ms = {f"U{u}_fb{fb}": cuda_ms(lambda fb=fb, u=u: probes.raster_u(
             pv, ptri, 224, 224, fb=fb, unroll=u), 50, 5)
-            for fb, u in profile_raster3.SETTINGS}
+            for fb, u in x2_settings}
         x2p_ms = cuda_ms(lambda: plain.rasterize_winner(pv, ptri, 224, 224),
                          5, 1)
         rk1_ms = cuda_ms(lambda: tops.rasterize_winner(rv, rtri, 224, 224),
@@ -3471,6 +3479,31 @@ def main():
         f"({x3_bound[1]}: {x3_bound[2]} B, {x3_bound[3]} ops); decision "
         f"K1 / X3 win16 fb8 = {rk1_ms / x3_ms['win16_fb8']:.3f} "
         f"(tile binning only at >= 1.3); {card}")
+    # each X2 and X3 launch as the card builds it, and X3's union
+    # rectangles against whole bands (ops/raster_selftest.py's CPU model)
+    for fb, unroll in x2_settings:
+        shape = probes.PROBE_UNROLL.launch_shape(unroll, fb, 224, 224)
+        ms = x2_ms[f"U{unroll}_fb{fb}"]
+        log(f"probe launch X2 U{unroll}_fb{fb} (unroll_walk_kernel): "
+            f"{json.dumps(shape)}, {ms:.4f} ms, {ms / pk1_ms:.3f}x K1; "
+            f"{card}")
+    rv_np, rtri_np = rv.cpu().numpy(), rtri.cpu().numpy()
+    for win, fb in raster_selftest.REGACC_SETTINGS:
+        chunk = 512 // fb
+        shape = probes.PROBE_BAND_REGACC.launch_shape(win, chunk, 224, 224)
+        ms = x3_ms[f"win{win}_fb{fb}"]
+        union = raster_selftest.band_boxes(rv_np, rtri_np, 224, 224, win,
+                                           chunk)[5]
+        drawn = union[:, 0] <= union[:, 1]
+        keys = int(((union[drawn, 1] - union[drawn, 0] + 1)
+                    * (union[drawn, 3] - union[drawn, 2] + 1)).sum())
+        band_keys = union.shape[0] * win * 224
+        log(f"probe launch X3 win{win}_fb{fb} (band_walk_kernel, chunk "
+            f"{chunk}): {json.dumps(shape)}, {ms:.4f} ms, "
+            f"{ms / rk1_ms:.3f}x K1; union rectangles (CPU model): "
+            f"{int(drawn.sum())} of {union.shape[0]} blocks draw, {keys} "
+            f"keys zeroed and flushed against {band_keys} for whole bands "
+            f"({keys / band_keys:.4f}); {card}")
 
     # ---- 8. the card against the port on the CPU ------------------------
     cpu_bfm, cpu_g = trees

@@ -35,6 +35,7 @@ from voicepuppet_torch.experiments import _timing
 from voicepuppet_torch.face3d import raster as traster
 from voicepuppet_torch.ops import raster_probes as tprobes
 from voicepuppet_torch.ops import raster_selftest as tself
+from voicepuppet_torch.ops.raster import _check_size
 
 torch.set_num_threads(1)
 
@@ -407,3 +408,213 @@ def test_profile_entry_point_runs_on_cpu(name, capsys):
         assert out.count("winner True depth True") == 4
     if name == "profile_raster_regacc":
         assert "decision:" in out
+
+
+# ---- CPU models of X2's and X3's walks (ops/raster_selftest.py) -------------
+
+# one (unroll, fb) setting whose warp holds L = 32 x unroll x fb entries
+SETTING_FOR_L = {32: (1, 1), 64: (2, 1), 256: (4, 2), 2048: (8, 8)}
+MODEL_CASES = {**tself.CASES, **tself.GROUPED_CASES, **tself.PROBE_CASES}
+
+
+def _model_case(name):
+    v, t, _, h, w = MODEL_CASES[name]()
+    return (np.ascontiguousarray(v if v.ndim == 3 else v[None], np.float32),
+            np.asarray(t, np.int32), h, w)
+
+
+def _expect_walk_covers(v, t, h, w, boxes, visits, label):
+    """Every pixel of every box (x0, y0, width, height) [B*F] is visited
+    exactly once, and nothing else: their row-major codes are 0 .. N-1."""
+    x0, y0, bw, bh = boxes
+    entry, x, y = visits
+    assert ((x >= x0[entry]) & (x < x0[entry] + bw[entry])
+            & (y >= y0[entry]) & (y < y0[entry] + bh[entry])).all(), label
+    area = bw * bh
+    start = np.cumsum(area) - area
+    code = start[entry] + (y - y0[entry]) * bw[entry] + (x - x0[entry])
+    np.testing.assert_array_equal(np.sort(code), np.arange(area.sum()),
+                                  err_msg=label)
+
+
+def _drawn(v, t, h, w):
+    """(flat entry b * F + f, frame, pixel within the frame) of every
+    fragment K1's plain version draws."""
+    tri, pix, _ = traster._fragments(torch.from_numpy(v), torch.from_numpy(t),
+                                     h, w, False)
+    frame = pix.numpy() // (h * w)
+    return frame * t.shape[0] + tri.numpy(), frame, pix.numpy() % (h * w)
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+@pytest.mark.parametrize("slots", sorted(SETTING_FOR_L))
+def test_unroll_walk_model_visits_every_bbox_pixel_once(slots, name):
+    """X2's schedule as one list of L = 32 x unroll x fb slots a warp
+    (``unroll_order`` with rounds of L): every entry sits in one slot,
+    the log2(L)-step owner search visits every bbox pixel of every entry
+    exactly once and every fragment K1 draws, each list takes
+    ceil(its area / 32) steps, and at L = 32 the schedule is K1's."""
+    v, t, h, w = _model_case(name)
+    b, f = v.shape[0], t.shape[0]
+    unroll, fb = SETTING_FOR_L[slots]
+    order = tself.unroll_order(b, f, unroll, fb, round_slots=slots)
+    assert order.shape[1] == slots
+    np.testing.assert_array_equal(np.sort(order[order >= 0]),
+                                  np.arange(b * f))
+    boxes = tself.walk_entries(v, t, h, w)
+    entry, x, y, steps = tself.walk_schedule(*boxes, slots=slots,
+                                             order=order)
+    _expect_walk_covers(v, t, h, w, boxes, (entry, x, y), name)
+    drawn, frame, pix = _drawn(v, t, h, w)
+    assert np.isin(drawn * (h * w) + pix, entry * (h * w) + y * w + x).all()
+    area = np.where(order >= 0, (boxes[2] * boxes[3])[order], 0)
+    np.testing.assert_array_equal(steps, -(-area.sum(1) // tself.WARP))
+    if slots == 32:
+        for got, want in zip((entry, x, y, steps),
+                             tself.walk_schedule(*boxes)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rounds", [tself.WARP, 256])
+@pytest.mark.parametrize("fb", tprobes.UNROLLS)
+@pytest.mark.parametrize("unroll", tprobes.UNROLLS)
+def test_unroll_walk_model_in_rounds(unroll, fb, rounds):
+    """Rounds of at most ``rounds`` slots (the kernel's 32, one entry a
+    lane, and 256, the same entries in longer lists) at every setting, on 8 frames of the soup: each warp's lanes build
+    ``unroll`` consecutive triangles in ``fb`` consecutive frames, split
+    into lists of min(32 x unroll x fb, rounds) slots, and the walk still
+    visits every bbox pixel once."""
+    v, t, h, w = mesh_soup()
+    b, f = v.shape[0], t.shape[0]
+    order = tself.unroll_order(b, f, unroll, fb, round_slots=rounds)
+    kr = min(unroll * fb, rounds // tself.WARP)
+    assert order.shape[1] == tself.WARP * kr
+    np.testing.assert_array_equal(np.sort(order[order >= 0]),
+                                  np.arange(b * f))
+    # a warp's rounds, lane by lane: unroll consecutive triangles x fb
+    # consecutive frames per lane
+    lanes = order.reshape(-1, unroll * fb // kr, tself.WARP, kr)
+    per_lane = lanes.transpose(0, 2, 1, 3).reshape(-1, unroll * fb)
+    full = per_lane[(per_lane >= 0).all(1)]
+    tri, frame = full % f, full // f
+    np.testing.assert_array_equal(tri.reshape(-1, unroll, fb)
+                                  - tri[:, :1, None], np.broadcast_to(
+                                      np.arange(unroll)[:, None],
+                                      (len(full), unroll, fb)))
+    np.testing.assert_array_equal(frame.reshape(-1, unroll, fb)
+                                  - frame[:, :1, None], np.broadcast_to(
+                                      np.arange(fb), (len(full), unroll, fb)))
+    boxes = tself.walk_entries(v, t, h, w)
+    entry, x, y, _ = tself.walk_schedule(*boxes, slots=order.shape[1],
+                                         order=order)
+    _expect_walk_covers(v, t, h, w, boxes, (entry, x, y), "soup")
+
+
+def _band_case(name):
+    if name in X3_MESHES:
+        return X3_MESHES[name]()
+    return _model_case(name)
+
+
+@pytest.mark.parametrize("name", sorted({**tself.CASES, **tself.PROBE_CASES,
+                                         **X3_MESHES}))
+@pytest.mark.parametrize("win,fb",
+                         tself.REGACC_SETTINGS + tself.REGACC_LISTS)
+def test_band_walk_model_stays_in_the_union_rectangle(win, fb, name):
+    """X3's schedule (``band_boxes``): each bbox clipped to its chunk's
+    band is visited pixel by pixel exactly once by the warps' walks, every
+    in-band fragment of ``rasterize_winner_banded`` is visited, no visit
+    lies outside the band or the block's union rectangle, and the union
+    lies inside the band and the canvas (empty exactly where no clipped
+    bbox draws)."""
+    v, t, h, w = _band_case(name)
+    b, f = v.shape[0], t.shape[0]
+    chunk = 512 // fb
+    nc = -(-f // chunk)
+    x0, y0, bw, bh, order, union = tself.band_boxes(v, t, h, w, win, chunk)
+    assert order.shape == (b * nc, tprobes.regacc_slots(chunk))
+    entry, x, y, _ = tself.walk_schedule(x0, y0, bw, bh,
+                                         slots=order.shape[1], order=order)
+    _expect_walk_covers(v, t, h, w, (x0, y0, bw, bh), (entry, x, y), name)
+    start = traster.band_origins(torch.from_numpy(v), torch.from_numpy(t), h,
+                                 win, chunk).numpy()
+    # every in-band fragment of the plain version is visited
+    drawn, frame, pix = _drawn(v, t, h, w)
+    lo = start[frame, (drawn % f) // chunk]
+    keep = (pix // w >= lo) & (pix // w < lo + win)
+    assert np.isin(drawn[keep] * (h * w) + pix[keep],
+                   entry * (h * w) + y * w + x).all()
+    # nothing outside the band, nothing outside the union rectangle
+    block = (entry // f) * nc + (entry % f) // chunk
+    lo_v = start.reshape(-1)[block]
+    assert ((y >= lo_v) & (y < lo_v + win)).all()
+    u = union[block]
+    assert ((x >= u[:, 0]) & (x <= u[:, 1]) & (y >= u[:, 2])
+            & (y <= u[:, 3])).all()
+    live = np.zeros(b * nc, bool)
+    live[(np.arange(b * f) // f * nc + np.arange(b * f) % f // chunk)[
+        bw * bh > 0]] = True
+    empty = union[:, 0] > union[:, 1]
+    np.testing.assert_array_equal(empty, ~live)
+    assert (union[empty] == [2 ** 31 - 1, -1, 2 ** 31 - 1, -1]).all()
+    ok = union[~empty]
+    band = start.reshape(-1)[~empty]
+    assert ((ok[:, 0] >= 0) & (ok[:, 1] < w) & (ok[:, 2] >= band)
+            & (ok[:, 3] < band + win) & (ok[:, 2] <= ok[:, 3])).all()
+
+
+def test_band_walk_model_empty_chunks():
+    """A chunk whose triangles all lie off the canvas, and one whose band
+    (from a first triangle far below) holds none of its rows: both have an
+    empty union, so the kernel touches no memory for them, and the plain
+    version gives them no pixel."""
+    v, t, h, w = mesh_band_fitting()
+    v = v.copy()
+    v[:, t[128:192].reshape(-1), 0] -= 200.0          # chunk 2: off canvas
+    v[:, t[192]] = [[20.3, 200.0, 9.0], [24.3, 205.0, 9.0],
+                    [22.3, 210.0, 9.0]]                # chunk 3: band 48-63
+    _, _, bw, bh, order, union = tself.band_boxes(v, t, h, w, 16, 64)
+    nc = union.shape[0] // v.shape[0]
+    empty = (union[:, 0] > union[:, 1]).reshape(-1, nc)
+    assert empty[:, 2:4].all() and not empty[:, [0, 1, 4, 5, 6, 7]].any()
+    winner, _ = traster.rasterize_winner_banded(torch.from_numpy(v),
+                                                torch.from_numpy(t), h, w,
+                                                16, 64)
+    won = winner.numpy()
+    assert not ((won >= 128) & (won < 256)).any()
+    assert ((won >= 256) & (won < len(t))).any()
+
+
+def test_regacc_shared_bytes():
+    """X3's shared memory a block: the band's keys and the chunk's walk
+    list, 84 B a slot, the list the power of two >= max(chunk, 32)."""
+    assert [tprobes.regacc_slots(c) for c in (1, 32, 33, 64, 100, 512)] == [
+        32, 32, 64, 64, 128, 512]
+    assert tprobes.regacc_shared_bytes(16, 224, 64) == 28672 + 64 * 84
+    assert tprobes.regacc_shared_bytes(16, 224, 128) == 28672 + 128 * 84
+    assert tprobes.regacc_shared_bytes(8, 224, 64) == 14336 + 64 * 84
+    assert tprobes.regacc_shared_bytes(1, 3, 1) == 32 + 32 * 84
+
+
+@pytest.mark.parametrize("slots", sorted(SETTING_FOR_L))
+def test_unroll_wrapper_refuses_32bit_sums(slots):
+    """X2 walks a warp's L = 32 x unroll x fb entries in rounds of 32
+    slots, so a round sums at most 32 x h x w, as K1's warp does.  The
+    size check that every CUDA call of the wrapper makes before it builds
+    or launches anything (``_check``, K1's ``_check_size``) refuses
+    32 x h x w >= 2^31, which keeps a round's sums and pixel indices below
+    2^32 at every L; a canvas whose whole list L x h x w reaches 2^32 while
+    its rounds stay below is admitted."""
+    unroll, fb = SETTING_FOR_L[slots]
+    # one warp's entries: unroll x fb rounds of 32 slots
+    order = tself.unroll_order(fb, tself.WARP * unroll, unroll, fb)
+    assert order.shape == (unroll * fb, tself.WARP)
+    h = 1024
+    w = 2 ** 31 // (tself.WARP * h)
+    with pytest.raises(ValueError, match="unsupported raster size"):
+        _check_size(1, 64, h, w)
+    _check_size(1, 64, h, w - 1)
+    assert tself.WARP * h * (w - 1) + tself.WARP < 2 ** 32
+    hw = -(-2 ** 32 // slots)      # the least h x w with L x h x w >= 2^32
+    if tself.WARP * hw < 2 ** 31:
+        _check_size(1, 64, 1, hw)

@@ -11,7 +11,9 @@
 //      (mesh_core.cpp:108-166, 148);
 //   K5 _raster_kernel_interp_grouped: K3 merged per group, as K4 is K1;
 // and the raster A/B probes of experiments/ (X1 _kernel_b, X2
-// _kernel_unroll, X3 _regacc_kernel; near the end, behind vp_raster_probe).
+// _kernel_unroll, X3 _regacc_kernel; near the end, behind vp_raster_probe),
+// X2 and X3 built on K1's balanced walk (walk_list) and differing from it
+// only in what they probe.
 // The TPU kernels walk triangles in index order over a VMEM-resident depth
 // window; windows, 8-aligned origins, frame interleave and 128-lane x-bands
 // are TPU layout devices and none of them carries over.  What they compute
@@ -141,13 +143,12 @@ struct Tri {
   unsigned long long key;
 };
 
-// Builds triangle f of one frame; false if it can never draw.
+// Builds triangle f of one frame from its corner indices i0, i1, i2; false
+// if it can never draw.
 template <bool INTERP>
-__device__ __forceinline__ bool tri_setup(const float* __restrict__ vb,
-                                          const int* __restrict__ tris,
-                                          int f, int V, int H, int W,
-                                          Tri& t) {
-  const int i0 = tris[3 * f], i1 = tris[3 * f + 1], i2 = tris[3 * f + 2];
+__device__ __forceinline__ bool tri_setup_at(const float* __restrict__ vb,
+                                             int i0, int i1, int i2, int f,
+                                             int V, int H, int W, Tri& t) {
   // indices are range-checked where the topology is made (morph.device_bfm);
   // a triangle outside [0, V) is skipped rather than read out of bounds
   if ((unsigned)i0 >= (unsigned)V || (unsigned)i1 >= (unsigned)V ||
@@ -199,6 +200,16 @@ __device__ __forceinline__ bool tri_setup(const float* __restrict__ vb,
   // degenerate triangle: inv_deno = 0 -> u = v = 0 over the whole bbox
   t.inv = (deno == 0.0f) ? 0.0f : __fdiv_rn(1.0f, deno);
   return true;
+}
+
+// Builds triangle f of one frame; false if it can never draw.
+template <bool INTERP>
+__device__ __forceinline__ bool tri_setup(const float* __restrict__ vb,
+                                          const int* __restrict__ tris,
+                                          int f, int V, int H, int W,
+                                          Tri& t) {
+  return tri_setup_at<INTERP>(vb, tris[3 * f], tris[3 * f + 1],
+                              tris[3 * f + 2], f, V, H, W, t);
 }
 
 // The fragment key of triangle t at pixel (x, y) inside its bbox, 0 if the
@@ -288,6 +299,64 @@ __device__ __forceinline__ Tri load_slot(const WalkSlot& s, unsigned& magic,
   return t;
 }
 
+// Inclusive sum of v over the warp's 32 lanes; every lane calls it.
+__device__ __forceinline__ unsigned warp_inclusive_sum(unsigned v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned up = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    if (lane >= d) v += up;
+  }
+  return v;
+}
+
+// The balanced walk over a list of NS slots (NS a power of two, at least
+// 32) whose inclusive area sums are e[0 .. NS - 1], total = e[NS - 1]: the
+// `stride` threads that walk it (a warp's 32 lanes, or X3's block) take
+// `stride` adjacent pixels a step, thread `first` pixel r = base + first of
+// the list for base = 0, stride, ... below `total`; each finds its owner
+// slot by log2(NS) shared loads and its (x, y) by the owner's magic number,
+// and calls emit(off, x, y, key) where the fragment draws (off: the slot's
+// frame offset).  K1/K3, X2 and X3 all walk with it.
+template <bool INTERP, int NS, typename Emit>
+__device__ __forceinline__ void walk_list(const WalkSlot* slots,
+                                          const unsigned* e, unsigned total,
+                                          int first, int stride, int H, int W,
+                                          Emit emit) {
+  // No shuffle from here on: the last step's threads past `total` leave.
+  for (unsigned r = first; r < total; r += stride) {
+    // the owner: the first slot whose sum exceeds r (a slot that drew
+    // nothing adds 0 and is never one); `start` is the sum before it
+    int o = 0;
+    unsigned start = 0;
+#pragma unroll
+    for (int s = NS / 2; s > 0; s >>= 1) {
+      const unsigned v = e[o + s - 1];
+      if (v <= r) {
+        o += s;
+        start = v;
+      }
+    }
+    unsigned m;
+    int off;
+    const Tri t = load_slot(slots[o], m, off);
+    // row-major position q < w * h of the owner's bbox; with
+    // m = floor((2^32 - 1) / w) + 1, umulhi(q, m) is floor(q / w) or one
+    // more for every q < 2^31, so one correction makes it exact (unsigned:
+    // dy * w may pass 2^31 before it)
+    const unsigned q = r - start;
+    const unsigned w = (unsigned)(t.x1 - t.x0 + 1);
+    int dy = (int)(m ? __umulhi(q, m) : q);
+    int dx = (int)(q - (unsigned)dy * w);
+    if (dx < 0) {
+      --dy;
+      dx += (int)w;
+    }
+    const int x = t.x0 + dx, y = t.y0 + dy;
+    const unsigned long long key = pixel_key<INTERP>(t, x, y, H, W);
+    if (key) emit(off, x, y, key);
+  }
+}
+
 // K1/K3: one warp per 32 consecutive (frame, triangle) entries, whose bbox
 // pixels its 32 lanes walk together, 32 adjacent pixels a step (header
 // note).
@@ -327,49 +396,14 @@ triangle_kernel(const float* __restrict__ verts,
   // Inclusive scan of the areas in 32 bits: one degenerate triangle's bbox
   // may be the whole canvas, but the wrapper admits 32 * H * W < 2^31 only,
   // so a warp's total, and every pixel index r + 32 below, stays < 2^32.
-  unsigned end = area;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned up = __shfl_up_sync(0xFFFFFFFFu, end, d);
-    if (lane >= d) end += up;
-  }
+  const unsigned end = warp_inclusive_sum(area, lane);
   ends[warp][lane] = end;
   const unsigned total = __shfl_sync(0xFFFFFFFFu, end, 31);
   __syncwarp();   // the slots and sums are read by every lane below
-  const unsigned* e = ends[warp];
-  // No shuffle from here on: the last step's lanes past `total` leave.
-  for (unsigned r = lane; r < total; r += 32) {
-    // the owner: the first slot whose sum exceeds r (a slot that drew
-    // nothing adds 0 and is never one); `start` is the sum before it
-    int o = 0;
-    unsigned start = 0;
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      const unsigned v = e[o + s - 1];
-      if (v <= r) {
-        o += s;
-        start = v;
-      }
-    }
-    unsigned m;
-    int off;
-    const Tri t = load_slot(slots[warp][o], m, off);
-    // row-major position q < w * h of the owner's bbox; with
-    // m = floor((2^32 - 1) / w) + 1, umulhi(q, m) is floor(q / w) or one
-    // more for every q < 2^31, so one correction makes it exact (unsigned:
-    // dy * w may pass 2^31 before it)
-    const unsigned q = r - start;
-    const unsigned w = (unsigned)(t.x1 - t.x0 + 1);
-    int dy = (int)(m ? __umulhi(q, m) : q);
-    int dx = (int)(q - (unsigned)dy * w);
-    if (dx < 0) {
-      --dy;
-      dx += (int)w;
-    }
-    const int x = t.x0 + dx, y = t.y0 + dy;
-    const unsigned long long key = pixel_key<INTERP>(t, x, y, H, W);
-    if (key) atomicMax(zbuf + off + (size_t)y * W + x, key);
-  }
+  walk_list<INTERP, 32>(slots[warp], ends[warp], total, lane, 32, H, W,
+                        [&](int off, int x, int y, unsigned long long key) {
+                          atomicMax(zbuf + off + (size_t)y * W + x, key);
+                        });
 }
 
 // Reductions over the T lanes of one tile (T a power of two; at T = 1 the
@@ -569,13 +603,15 @@ __global__ void resolve_kernel(const unsigned long long* __restrict__ zbuf,
 }
 
 // ---- the raster A/B probes (experiments/profile_raster{2,3,_regacc}.py) --
-// Each differs from K1 only in what it probes; all share tri_setup,
+// Each is K1 changed in the one respect it probes.  All share tri_setup,
 // pixel_key, orderable and the resolve pass, so their outputs are the plain
-// versions' in face3d/raster.py bit for bit.  Bound: the vertices and
-// triangles read once and the probe's own outputs written once, bytes-bound
-// like K1 (about 4.2 us for B = 16 frames of the 189² mesh at 224²;
-// chip_smoke.py computes it from each run's inputs).  They are simple by
-// design: a probe measures one change against K1, not a tuned kernel.
+// versions' in face3d/raster.py bit for bit (and no FMA creeps into any of
+// them); X2 and X3 also walk with K1's walk_list, so a probe's time against
+// K1's in the same run measures its change, not a different walk.  Bound:
+// the vertices and triangles read once and the probe's own outputs written
+// once, bytes-bound like K1 (about 4.2 us for B = 16 frames of the 189²
+// mesh at 224²; chip_smoke.py computes it from each run's inputs).  X1
+// still walks each bbox with one thread, as K1 did before its redesign.
 
 // X1 (_kernel_b, profile_raster2.py:49): K1 with degenerate triangles
 // (inv_deno == 0) dropped at setup, as _trim_table's depth -1e10 does.
@@ -618,39 +654,91 @@ __global__ void depth_resolve_kernel(const unsigned int* __restrict__ zbuf,
   depth[idx] = o ? from_orderable(o) : kDepthInit;
 }
 
-// X2 (_kernel_unroll, profile_raster3.py:35): K1 with each thread taking
-// TPT consecutive triangles in each of FPT consecutive frames, the
-// counterparts of the TPU's triangle unroll and frame interleave fb.  The
-// atomicMax key makes the output K1's at every setting.
+// X2 (_kernel_unroll, profile_raster3.py:35): K1's balanced walk with more
+// entries a lane.  Lane j of a warp is thread g = fg * ceil(F / TPT) + tg
+// of the grid and takes TPT consecutive triangles tg * TPT + u in each of
+// FPT consecutive frames fg * FPT + i (the TPU's triangle unroll and frame
+// interleave fb); it loads a triangle's three indices once for its FPT
+// frames (the counterpart of one SMEM table row serving fb frames).  The
+// warp walks its 32 x TPT x FPT entries in TPT x FPT rounds of K1's list:
+// in round k each lane builds its entry k (triangle k / FPT, frame k % FPT)
+// into its slot, the warp scans the 32 areas and walks them with
+// walk_list, and the next round overwrites the slots.  At TPT = FPT = 1
+// this is triangle_kernel<false> entry for entry: the same grid, 8 warps a
+// block, lane j in slot j, one round.
+//   Rounds: a slot takes 84 B of shared memory (a WalkSlot and its sum), so
+// one list of all 2,048 entries (TPT = FPT = 8) would take 172,032 B, one
+// warp an SM.  Rounds of 32 slots keep K1's 21,504 B a block and its
+// 5-step owner search, and were the fastest round size at every setting on
+// an H100 (PERF.md).
+//   What bounds it: K1's costs per entry (index and vertex loads, the
+// setup's IEEE 1/deno and the magic number's division) and per pixel (the
+// owner search, five 128-bit slot loads, pixel_key, the atomic), a round's
+// imbalance across its 32 lanes, and B x F / (32 x TPT x FPT) warps: at
+// TPT x FPT = 32, 1,105 warps for B = 16 of the 189² mesh, 8.4 an SM.
 template <int TPT, int FPT>
-__global__ void unroll_kernel(const float* __restrict__ verts,
-                              const int* __restrict__ tris, int B, int V,
-                              int F, int H, int W,
-                              unsigned long long* __restrict__ zbuf) {
+__global__ void __launch_bounds__(32 * kWalkWarps)
+unroll_walk_kernel(const float* __restrict__ verts,
+                   const int* __restrict__ tris, int B, int V, int F, int H,
+                   int W, unsigned long long* __restrict__ zbuf) {
+  __shared__ WalkSlot slots[kWalkWarps][32];
+  __shared__ unsigned ends[kWalkWarps][32];    // inclusive sums of areas
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long ntg = (F + (long long)TPT - 1) / TPT;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ntg * ((B + (long long)FPT - 1) / FPT)) return;
-  const long long fg = idx / ntg;
-  const long long tg = idx - fg * ntg;
-#pragma unroll
-  for (int u = 0; u < TPT; ++u) {
-    const long long f = tg * TPT + u;
-#pragma unroll
-    for (int j = 0; j < FPT; ++j) {
-      const long long b = fg * FPT + j;
-      Tri t;
-      if (f >= F || b >= B ||
-          !tri_setup<false>(verts + (size_t)b * V * 3, tris, (int)f, V, H,
-                            W, t))
-        continue;
-      unsigned long long* zb = zbuf + (size_t)b * H * W;
-      for (int y = t.y0; y <= t.y1; ++y) {
-        for (int x = t.x0; x <= t.x1; ++x) {
-          const unsigned long long key = pixel_key<false>(t, x, y, H, W);
-          if (key) atomicMax(zb + (size_t)y * W + x, key);
-        }
+  const long long n = ntg * ((B + (long long)FPT - 1) / FPT);
+  const long long first = ((long long)blockIdx.x * kWalkWarps + warp) * 32;
+  // Exit hazard: only a warp whose every lane is past the end leaves; the
+  // scan of every round takes the full mask, so a lane past the end stays
+  // in, with area 0, through all the rounds.
+  if (first >= n) return;
+  const long long g = first + lane;
+  const bool in = g < n;
+  const long long fg = in ? g / ntg : 0;
+  const long long tg = in ? g - fg * ntg : 0;
+  // the lane's first triangle and frame: < F + TPT and < B + FPT, 32 bits
+  // (B x F < 2^31, the wrapper)
+  const int f0 = (int)(tg * TPT), b0 = (int)(fg * FPT);
+  // the current triangle's indices, loaded once for its FPT frames
+  int i0 = 0, i1 = 0, i2 = 0;
+  bool tri_in = false;
+#pragma unroll 1
+  for (int k = 0; k < TPT * FPT; ++k) {
+    const int f = f0 + k / FPT, b = b0 + k % FPT;
+    if (k % FPT == 0) {
+      tri_in = in && f < F;
+      if (tri_in) {
+        i0 = tris[3 * f];
+        i1 = tris[3 * f + 1];
+        i2 = tris[3 * f + 2];
       }
     }
+    unsigned area = 0;
+    Tri t;
+    if (tri_in && b < B &&
+        tri_setup_at<false>(verts + (size_t)b * V * 3, i0, i1, i2, f, V, H,
+                            W, t)) {
+      const int w = t.x1 - t.x0 + 1;
+      area = (unsigned)(w * (t.y1 - t.y0 + 1));   // <= H * W
+      // Order hazard: the rounds take the warp's entries lane by lane, not
+      // in K1's flat order b * F + f, and one lane's entries lie in FPT
+      // frames (a round's in several): the keys are order-free, so the
+      // output does not change, and each slot carries its own frame's
+      // key-buffer offset.
+      store_slot(slots[warp][lane], t, 0xFFFFFFFFu / (unsigned)w + 1u,
+                 b * H * W);
+    }
+    // Sum hazard: a round sums 32 areas, as K1's warp does, and the
+    // wrapper admits 32 x H x W < 2^31 only, so a round's total, and every
+    // pixel index r + 32 of its walk, stays < 2^32.
+    const unsigned end = warp_inclusive_sum(area, lane);
+    ends[warp][lane] = end;
+    const unsigned total = __shfl_sync(0xFFFFFFFFu, end, 31);
+    __syncwarp();   // the slots and sums are read by every lane below
+    walk_list<false, 32>(slots[warp], ends[warp], total, lane, 32, H, W,
+                         [&](int off, int x, int y, unsigned long long key) {
+                           atomicMax(zbuf + off + (size_t)y * W + x, key);
+                         });
+    __syncwarp();   // the next round overwrites this warp's slots and sums
   }
 }
 
@@ -673,93 +761,215 @@ __device__ __forceinline__ int band_origin(const float* __restrict__ vb,
   return (int)fminf(y0, (float)(H - win));
 }
 
-// X3 (_regacc_kernel, profile_raster_regacc.py:49): one block per (frame,
-// chunk of `chunk` consecutive triangles).  The chunk's band of win rows
-// lives in dynamic shared memory as win x W uint64 keys (28,672 B at win
-// 16, W 224), starting at 0; each thread takes triangles of the chunk,
-// walks its bbox rows inside the band and makes a shared-memory 64-bit
-// atomicMax per fragment; after __syncthreads() the block flushes each
-// non-zero key with one global atomicMax.  The max of the keys is the
-// TPU's strict '>' in id order within the chunk and its (max depth, min id)
-// flush across chunks.  This is the shared-memory z-buffer form that a
-// tile-binned raster would take, with the TPU probe's synthetic band
-// assignment: fragments outside the band are dropped.
-__global__ void band_regacc_kernel(const float* __restrict__ verts,
-                                   const int* __restrict__ tris, int B,
-                                   int V, int F, int H, int W, int win,
-                                   int chunk,
-                                   unsigned long long* __restrict__ zbuf) {
-  extern __shared__ unsigned long long band[];
+// X3 (_regacc_kernel, profile_raster_regacc.py:49): K1's build and walk,
+// with the atomicMax going into a shared-memory band.  One block per (frame,
+// chunk of `chunk` consecutive triangles), thread i building triangle
+// chunk x c + i into slot i of the chunk's list of NS slots (NS the power of
+// two >= max(chunk, 32)).  The chunk's band of win rows from its first
+// triangle's aligned origin lives in dynamic shared memory as win x W
+// uint64 keys (28,672 B at win 16, W 224), the list's slots and sums after
+// it.  Each entry's bbox rows are clipped to the band [y0, y0 + win) before
+// the scan, so the walk never visits a pixel outside it (the TPU probe's
+// synthetic band assignment: fragments outside the band are dropped).  The
+// block scans the areas, reduces the clipped bboxes to their union
+// rectangle, zeroes only that rectangle, walks the list with walk_list
+// into the band, every thread of the block taking a pixel a step, and
+// flushes the rectangle row by row, coalesced, with one global atomicMax
+// per non-zero key.  Every key outside the rectangle stays zero, so the
+// output is what a whole-band flush gives; the TPU kernel handles whole
+// win x W windows because its vector unit works on windows.  The max of the
+// keys is the TPU's strict '>' in id order within the chunk and its
+// (max depth, min id) flush across chunks.
+//   Block shape: max(NS, kBandThreads) threads.  The band's shared memory
+// caps the resident blocks an SM (6 at win 16 and chunk 64, 34,048 B), so a
+// block of one warp per 32 entries (2 at chunk 64) leaves an SM 12 warps to
+// hide the walk's latency; 4 warps a block give it 24 and halve the steps
+// of each block's walk, zeroing and flush.  128 threads was the fastest
+// block at win 16, fb 8 (with 256) and at win 8, fb 8, where 256 would cap
+// an SM at 8 blocks by threads (PERF.md).
+//   What bounds it: a block's fixed cost (the band origin and the build,
+// each a chain of dependent loads, the scan, two reductions, three
+// barriers) over few entries (64 at fb 8), and the band's shared memory.
+constexpr int kBandThreads = 128;
+constexpr int kBandMaxSlots = 512;   // chunk <= 512
+
+// The band's keys rounded up to 16 bytes; the list's slots follow them.
+__host__ __device__ __forceinline__ size_t band_keys_bytes(int win, int W) {
+  return ((size_t)win * W * sizeof(unsigned long long) + 15) & ~(size_t)15;
+}
+
+__host__ __device__ __forceinline__ size_t band_shared_bytes(int win, int W,
+                                                             int slots) {
+  return band_keys_bytes(win, W) +
+         (size_t)slots * (sizeof(WalkSlot) + sizeof(unsigned));
+}
+
+template <int NS>
+__global__ void __launch_bounds__(NS > kBandThreads ? NS : kBandThreads)
+band_walk_kernel(const float* __restrict__ verts,
+                 const int* __restrict__ tris, int B, int V, int F, int H,
+                 int W, int win, int chunk,
+                 unsigned long long* __restrict__ zbuf) {
+  constexpr int kWarps = (NS > kBandThreads ? NS : kBandThreads) / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int boxes[kWarps][4];     // each warp's union rectangle
+  __shared__ unsigned sums[kWarps];    // each warp's total area
+  const int i = threadIdx.x, warp = i >> 5, lane = i & 31;
+  unsigned long long* band = (unsigned long long*)smem;
+  WalkSlot* slots = (WalkSlot*)(smem + band_keys_bytes(win, W));
+  unsigned* ends = (unsigned*)(slots + NS);
   const int nc = (F + chunk - 1) / chunk;
   const int b = blockIdx.x / nc;
   const int c = blockIdx.x - b * nc;
   const float* vb = verts + (size_t)b * V * 3;
-  const int n = win * W;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) band[i] = 0ull;
   const int y0 = band_origin(vb, tris, c * chunk, V, H, win);
-  __syncthreads();
-  const int f1 = min(F, (c + 1) * chunk);
-  for (int f = c * chunk + threadIdx.x; f < f1; f += blockDim.x) {
-    Tri t;
-    if (!tri_setup<false>(vb, tris, f, V, H, W, t)) continue;
-    const int ya = max(t.y0, y0), yb = min(t.y1, y0 + win - 1);
-    for (int y = ya; y <= yb; ++y) {
-      for (int x = t.x0; x <= t.x1; ++x) {
-        const unsigned long long key = pixel_key<false>(t, x, y, H, W);
-        if (key) atomicMax(band + (y - y0) * W + x, key);
-      }
+  const int f = c * chunk + i;
+  unsigned area = 0;
+  // an empty box: min x0 > max x1 until an entry draws inside the band
+  int bx0 = 0x7FFFFFFF, bx1 = -1, by0 = 0x7FFFFFFF, by1 = -1;
+  Tri t;
+  if (i < chunk && f < F && tri_setup<false>(vb, tris, f, V, H, W, t)) {
+    t.y0 = max(t.y0, y0);
+    t.y1 = min(t.y1, y0 + win - 1);
+    if (t.y0 <= t.y1) {
+      const int w = t.x1 - t.x0 + 1;
+      area = (unsigned)(w * (t.y1 - t.y0 + 1));   // <= win * W
+      store_slot(slots[i], t, 0xFFFFFFFFu / (unsigned)w + 1u, 0);
+      bx0 = t.x0;
+      bx1 = t.x1;
+      by0 = t.y0;
+      by1 = t.y1;
     }
   }
+  // The scans and the reductions take the full mask: a thread past the
+  // chunk's end takes part with area 0 and an empty box.  Sum hazard: the
+  // band's keys fit 227 KB, so win x W < 29,057 and the list's total,
+  // at most NS x win x W, stays below 2^24.
+  const unsigned incl = warp_inclusive_sum(area, lane);
+  bx0 = __reduce_min_sync(0xFFFFFFFFu, bx0);
+  bx1 = __reduce_max_sync(0xFFFFFFFFu, bx1);
+  by0 = __reduce_min_sync(0xFFFFFFFFu, by0);
+  by1 = __reduce_max_sync(0xFFFFFFFFu, by1);
+  if (lane == 31) sums[warp] = incl;
+  if (lane == 0) {
+    boxes[warp][0] = bx0;
+    boxes[warp][1] = bx1;
+    boxes[warp][2] = by0;
+    boxes[warp][3] = by1;
+  }
   __syncthreads();
-  unsigned long long* zb = zbuf + (size_t)b * H * W + (size_t)y0 * W;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const unsigned long long key = band[i];
-    if (key) atomicMax(zb + i, key);
+  unsigned before = 0, total = 0;
+  int ux0 = 0x7FFFFFFF, ux1 = -1, uy0 = 0x7FFFFFFF, uy1 = -1;
+  for (int j = 0; j < kWarps; ++j) {
+    if (j < warp) before += sums[j];
+    total += sums[j];
+    ux0 = min(ux0, boxes[j][0]);
+    ux1 = max(ux1, boxes[j][1]);
+    uy0 = min(uy0, boxes[j][2]);
+    uy1 = max(uy1, boxes[j][3]);
+  }
+  // Empty-union hazard: a chunk with no entry that draws inside its band
+  // leaves here, every thread alike (the union is the block's), before it
+  // zeroes, walks or flushes anything: no global memory is touched, and no
+  // width or height is formed from the empty set's sentinels.
+  if (ux0 > ux1) return;
+  if (i < NS) ends[i] = before + incl;
+  for (int y = uy0 + warp; y <= uy1; y += kWarps)
+    for (int x = ux0 + lane; x <= ux1; x += 32) band[(y - y0) * W + x] = 0ull;
+  __syncthreads();   // the slots, the sums and the zeroed rectangle
+  walk_list<false, NS>(slots, ends, total, i, 32 * kWarps, H, W,
+                       [&](int, int x, int y, unsigned long long key) {
+                         atomicMax(band + (y - y0) * W + x, key);
+                       });
+  __syncthreads();
+  unsigned long long* zb = zbuf + (size_t)b * H * W;
+  for (int y = uy0 + warp; y <= uy1; y += kWarps) {
+    for (int x = ux0 + lane; x <= ux1; x += 32) {
+      const unsigned long long key = band[(y - y0) * W + x];
+      if (key) atomicMax(zb + (size_t)y * W + x, key);
+    }
   }
 }
 
-template <int TPT>
-cudaError_t launch_unroll_fpt(int fpt, const float* v, const int* t, int B,
-                              int V, int F, int H, int W,
-                              unsigned long long* z, cudaStream_t s) {
-  const int threads = 256;
-  const long long nt = ((F + (long long)TPT - 1) / TPT) *
-                       ((B + (long long)fpt - 1) / fpt);
-  const unsigned blocks = (unsigned)((nt + threads - 1) / threads);
-  switch (fpt) {
-    case 1:
-      unroll_kernel<TPT, 1><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
-                                                       z);
-      break;
-    case 2:
-      unroll_kernel<TPT, 2><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
-                                                       z);
-      break;
-    case 4:
-      unroll_kernel<TPT, 4><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
-                                                       z);
-      break;
-    case 8:
-      unroll_kernel<TPT, 8><<<blocks, threads, 0, s>>>(v, t, B, V, F, H, W,
-                                                       z);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-cudaError_t launch_unroll(int tpt, int fpt, const float* v, const int* t,
-                          int B, int V, int F, int H, int W,
-                          unsigned long long* z, cudaStream_t s) {
-  switch (tpt) {
-    case 1: return launch_unroll_fpt<1>(fpt, v, t, B, V, F, H, W, z, s);
-    case 2: return launch_unroll_fpt<2>(fpt, v, t, B, V, F, H, W, z, s);
-    case 4: return launch_unroll_fpt<4>(fpt, v, t, B, V, F, H, W, z, s);
-    case 8: return launch_unroll_fpt<8>(fpt, v, t, B, V, F, H, W, z, s);
+// Runs op.run<NS>() for X3's list of `slots` slots (32, 64, ..., 512).
+template <typename Op>
+cudaError_t with_band_slots(int slots, Op& op) {
+  switch (slots) {
+    case 32: return op.template run<32>();
+    case 64: return op.template run<64>();
+    case 128: return op.template run<128>();
+    case 256: return op.template run<256>();
+    case 512: return op.template run<512>();
     default: return cudaErrorInvalidValue;
   }
 }
+
+// Runs op.run<TPT, FPT>() for TPT and FPT each in {1, 2, 4, 8}.
+template <int TPT, typename Op>
+cudaError_t unroll_fpt(int fpt, Op& op) {
+  switch (fpt) {
+    case 1: return op.template run<TPT, 1>();
+    case 2: return op.template run<TPT, 2>();
+    case 4: return op.template run<TPT, 4>();
+    case 8: return op.template run<TPT, 8>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Op>
+cudaError_t with_unroll(int tpt, int fpt, Op& op) {
+  switch (tpt) {
+    case 1: return unroll_fpt<1>(fpt, op);
+    case 2: return unroll_fpt<2>(fpt, op);
+    case 4: return unroll_fpt<4>(fpt, op);
+    case 8: return unroll_fpt<8>(fpt, op);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+struct UnrollLaunch {
+  const float* v;
+  const int* t;
+  int B, V, F, H, W;
+  unsigned long long* z;
+  cudaStream_t s;
+  template <int TPT, int FPT>
+  cudaError_t run() {
+    const int threads = 32 * kWalkWarps;
+    const long long nt = ((F + (long long)TPT - 1) / TPT) *
+                         ((B + (long long)FPT - 1) / FPT);
+    unroll_walk_kernel<TPT, FPT>
+        <<<(unsigned)((nt + threads - 1) / threads), threads, 0, s>>>(
+            v, t, B, V, F, H, W, z);
+    return cudaGetLastError();
+  }
+};
+
+// out: registers a thread, static and dynamic shared bytes, threads a
+// block, and resident blocks an SM at that launch.
+cudaError_t kernel_attrs(const void* fn, int threads, size_t dyn, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      dyn);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = (int)dyn;
+  out[3] = threads;
+  out[4] = blocks;
+  return err;
+}
+
+struct UnrollAttrs {
+  int* out;
+  template <int TPT, int FPT>
+  cudaError_t run() {
+    return kernel_attrs((const void*)unroll_walk_kernel<TPT, FPT>,
+                        32 * kWalkWarps, 0, out);
+  }
+};
 
 constexpr int kMaxSharedBytes = 232448;   // 227 KB: an H100 block's most
 
@@ -806,6 +1016,66 @@ cudaError_t launch_pass1(const float* vertices, const int* triangles, int B,
   }
 }
 
+// X3's list length (the power of two >= max(chunk, 32)), threads a block
+// and dynamic shared bytes; cudaErrorInvalidValue for a setting outside
+// the ranges of vp_raster_probe.
+cudaError_t band_launch_shape(int win, int chunk, int H, int W, int& slots,
+                              int& threads, size_t& smem) {
+  if (win < 1 || win > H || chunk < 1 || chunk > kBandMaxSlots)
+    return cudaErrorInvalidValue;
+  slots = 32;
+  while (slots < chunk) slots <<= 1;
+  threads = slots > kBandThreads ? slots : kBandThreads;
+  smem = band_shared_bytes(win, W, slots);
+  return smem > kMaxSharedBytes ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// band_walk_kernel<NS>'s dynamic shared memory, opted in at every size:
+// the 48 KB a block gets without the opt-in counts its static arrays too,
+// so 48 KB of keys and slots alone already need it.
+template <int NS>
+cudaError_t allow_band_shared(size_t smem) {
+  return cudaFuncSetAttribute(band_walk_kernel<NS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+struct BandLaunch {
+  const float* v;
+  const int* t;
+  int B, V, F, H, W, win, chunk, threads;
+  size_t smem;
+  unsigned long long* z;
+  cudaStream_t s;
+  template <int NS>
+  cudaError_t run() {
+    const cudaError_t err = allow_band_shared<NS>(smem);
+    if (err != cudaSuccess) return err;
+    const long long nc = (F + (long long)chunk - 1) / chunk;
+    band_walk_kernel<NS><<<(unsigned)(B * nc), threads, smem, s>>>(
+        v, t, B, V, F, H, W, win, chunk, z);
+    return cudaGetLastError();
+  }
+};
+
+struct BandAttrs {
+  int threads;
+  size_t smem;
+  int* out;
+  template <int NS>
+  cudaError_t run() {
+    const cudaError_t err = allow_band_shared<NS>(smem);
+    if (err != cudaSuccess) return err;
+    return kernel_attrs((const void*)band_walk_kernel<NS>, threads, smem,
+                        out);
+  }
+};
+
+bool unroll_ok(int tpt, int fpt) {
+  return (tpt == 1 || tpt == 2 || tpt == 4 || tpt == 8) &&
+         (fpt == 1 || fpt == 2 || fpt == 4 || fpt == 8);
+}
+
 }  // namespace
 
 // vertices [B,V,3] f32, triangles [F,3] i32, colors [B,V,C] f32 or null;
@@ -847,8 +1117,10 @@ extern "C" int vp_raster(const float* vertices, const int* triangles,
 //            0 for depth only (zbuf [B,H,W] u32, winner null);
 //   probe 1  X2 unroll: a = triangles per thread, b = frames per thread,
 //            each in {1, 2, 4, 8} (zbuf u64);
-//   probe 2  X3 band regacc: a = band rows win in [1, H], b = chunk >= 1,
-//            win * W * 8 bytes of shared memory at most 227 KB (zbuf u64).
+//   probe 2  X3 band regacc: a = band rows win in [1, H], b = chunk in
+//            [1, 512], the band's win x W keys and the chunk's walk slots
+//            (band_shared_bytes) at most 227 KB of shared memory (zbuf
+//            u64).
 // winner [B,H,W] i32 or null, depth [B,H,W] f32.  Launches on `stream`,
 // returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for a
 // setting outside those ranges, before any launch).
@@ -861,13 +1133,15 @@ extern "C" int vp_raster_probe(const float* vertices, const int* triangles,
   const int threads = 256;
   const unsigned pblocks = (unsigned)((np + threads - 1) / threads);
   const bool depth_only = probe == 0 && a == 0;
-  const size_t smem = probe == 2 ? sizeof(unsigned long long) * (size_t)a * W
-                                 : 0;
-  if (probe < 0 || probe > 2 ||
-      (probe == 1 && !((a == 1 || a == 2 || a == 4 || a == 8) &&
-                       (b == 1 || b == 2 || b == 4 || b == 8))) ||
-      (probe == 2 && (a < 1 || a > H || b < 1 || smem > kMaxSharedBytes)))
+  int band_slots = 0, band_threads = 0;
+  size_t smem = 0;
+  if (probe < 0 || probe > 2 || (probe == 1 && !unroll_ok(a, b)))
     return (int)cudaErrorInvalidValue;
+  if (probe == 2) {
+    const cudaError_t err =
+        band_launch_shape(a, b, H, W, band_slots, band_threads, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaError_t err = cudaMemsetAsync(
       zbuf, 0, (depth_only ? sizeof(unsigned int)
                            : sizeof(unsigned long long)) * (size_t)np, s);
@@ -885,20 +1159,12 @@ extern "C" int vp_raster_probe(const float* vertices, const int* triangles,
             vertices, triangles, B, V, F, H, W, zbuf);
       err = cudaGetLastError();
     } else if (probe == 1) {
-      err = launch_unroll(a, b, vertices, triangles, B, V, F, H, W, z, s);
+      UnrollLaunch op{vertices, triangles, B, V, F, H, W, z, s};
+      err = with_unroll(a, b, op);
     } else {
-      if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(band_regacc_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-      }
-      // one thread per triangle of the chunk, in whole warps, at most 512
-      const long long nc = (F + (long long)b - 1) / b;
-      const int bthreads = ((b < 512 ? b : 512) + 31) / 32 * 32;
-      band_regacc_kernel<<<(unsigned)(B * nc), bthreads, smem, s>>>(
-          vertices, triangles, B, V, F, H, W, a, b, z);
-      err = cudaGetLastError();
+      BandLaunch op{vertices, triangles, B, V, F, H, W, a, b, band_threads,
+                    smem, z, s};
+      err = with_band_slots(band_slots, op);
     }
     if (err != cudaSuccess) return (int)err;
   }
@@ -912,4 +1178,26 @@ extern "C" int vp_raster_probe(const float* vertices, const int* triangles,
                                                  nullptr, nullptr);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch shape of probe 1 (X2: a = TPT, b = FPT) or probe 2 (X3: a =
+// win, b = chunk) on an H x W canvas: out[0] registers a thread, out[1]
+// static and out[2] dynamic shared bytes a block, out[3] threads a block,
+// out[4] resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns a CUDA error code (cudaErrorInvalidValue as vp_raster_probe).
+extern "C" int vp_raster_probe_attrs(int probe, int a, int b, int H, int W,
+                                     int* out) {
+  if (probe == 1) {
+    if (!unroll_ok(a, b)) return (int)cudaErrorInvalidValue;
+    UnrollAttrs op{out};
+    return (int)with_unroll(a, b, op);
+  }
+  if (probe != 2) return (int)cudaErrorInvalidValue;
+  int slots = 0, threads = 0;
+  size_t smem = 0;
+  const cudaError_t err =
+      band_launch_shape(a, b, H, W, slots, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  BandAttrs op{threads, smem, out};
+  return (int)with_band_slots(slots, op);
 }

@@ -1,9 +1,14 @@
 """Third raster profile: X2, is the per-triangle floor loop overhead?
 
 Port of experiments/profile_raster3.py.  Variants: K1, and X2
-(``raster_u``) with each thread taking ``unroll`` consecutive triangles in
-each of ``fb`` frames, at the JAX script's four (unroll, fb) settings.
-Mesh: synthetic_bfm(189, 189, seed=0), 16 frames of demo_coeff(seed=1).
+(``raster_u``) at the JAX script's four (unroll, fb) settings.  X2 is K1's
+design with more work a thread: lane j of a warp builds ``unroll``
+consecutive triangles in each of ``fb`` frames (their indices loaded once
+for the frames), and the warp walks its 32 x unroll x fb entries as K1's
+balanced list, in rounds of 32 slots; at unroll = fb = 1 it is K1's
+schedule.  So X2 against K1 reads what the longer list and the
+shared index loads change, and nothing else.  Mesh: synthetic_bfm(189,
+189, seed=0), 16 frames of demo_coeff(seed=1).
 
     python -m voicepuppet_torch.experiments.profile_raster3 [--device cpu]
 """

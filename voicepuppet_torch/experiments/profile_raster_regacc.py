@@ -4,10 +4,14 @@ accumulator, against K1, before any binning machinery is built.
 Port of experiments/profile_raster_regacc.py.  X3 (``rasterize_regacc``)
 runs one block per (frame, chunk of 512 // fb consecutive triangles); the
 chunk's win-row band, which starts at its first triangle's aligned window,
-is accumulated in shared memory and flushed once.  The band assignment is
-synthetic, so the output is wrong for an unsorted triangle order (only a
-table sorted into bands makes it exact), but the work per (triangle,
-frame) entry is a banded kernel's, so its time is the decision number.
+is accumulated in shared memory.  The block builds and walks its entries
+as K1 does (each bbox clipped to the band, the atomicMax into the band),
+then flushes only the union rectangle of the clipped bboxes, so X3
+against K1 reads the band accumulator itself, not another walk.  The band
+assignment is synthetic, so the output is wrong for an unsorted triangle
+order (only a table sorted into bands makes it exact), but the work per
+(triangle, frame) entry is a banded kernel's, so its time is the decision
+number.
 
 Decision rule (the JAX script's): unless X3 beats K1 by at least 1.3x per
 entry, tile binning cannot win, since sorting and binning only add cost.

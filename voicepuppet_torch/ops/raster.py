@@ -106,6 +106,9 @@ class RasterLibrary:
                                                 + [ctypes.c_int] * 8
                                                 + [ctypes.c_void_p] * 4)
                 lib.vp_raster_probe.restype = ctypes.c_int
+                lib.vp_raster_probe_attrs.argtypes = ([ctypes.c_int] * 5
+                                                      + [ctypes.c_void_p])
+                lib.vp_raster_probe_attrs.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
 
@@ -114,6 +117,9 @@ class RasterLibrary:
 
     def probe_function(self):
         return self._load().vp_raster_probe
+
+    def probe_attrs_function(self):
+        return self._load().vp_raster_probe_attrs
 
 
 LIBRARY = RasterLibrary()

@@ -9,14 +9,23 @@ their entry points there:
   rasterize_regacc  X3  ``_regacc_kernel``   experiments/profile_raster_regacc.py:49
 
 Each probe is K1 (``ops/raster.py``) changed in the one respect it
-measures, and runs in ``csrc/raster.cu`` behind ``vp_raster_probe``:
+measures, and runs in ``csrc/raster.cu`` behind ``vp_raster_probe``; X2
+and X3 walk with K1's balanced warp walk, so their times against K1's in
+one run measure the change alone:
 
   X1  degenerate triangles draw nothing, and ``winner=False`` stores only
-      depth (a 32-bit atomicMax in place of the 64-bit key);
-  X2  each thread takes ``unroll`` consecutive triangles in each of ``fb``
-      consecutive frames; the output is K1's at every setting;
-  X3  one block per (frame, chunk of ``512 // fb`` triangles) accumulates
-      the chunk's ``win``-row band in shared memory and flushes it once;
+      depth (a 32-bit atomicMax in place of the 64-bit key); each bbox is
+      still walked by one thread;
+  X2  lane j of a warp builds ``unroll`` consecutive triangles in each of
+      ``fb`` consecutive frames (a triangle's indices loaded once for its
+      frames), and the warp walks its 32 x unroll x fb entries in
+      unroll x fb rounds of K1's balanced list of 32 slots, one entry a
+      lane; at unroll = fb = 1 that is K1's schedule, and the output is
+      K1's at every setting;
+  X3  one block per (frame, chunk of ``512 // fb`` triangles) builds and
+      walks the chunk as K1 does, with each bbox clipped to the chunk's
+      ``win``-row band and the atomicMax going into the band in shared
+      memory, then flushes only the union rectangle of the clipped bboxes;
       fragments outside the band are dropped, so the output equals K1's
       only where every chunk fits its band.
 
@@ -26,7 +35,8 @@ On a CPU tensor the wrappers run the plain versions in
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -37,6 +47,8 @@ from voicepuppet_torch.ops.raster import LIBRARY, _check
 UNROLLS = (1, 2, 4, 8)
 # the H100's dynamic shared memory per block (227 KB)
 MAX_SHARED_BYTES = 232448
+# X3's shared memory per walk slot: a WalkSlot (80 B) and its sum (4 B)
+SLOT_BYTES = 84
 
 
 def fb_for_batch(b: int, fb: int = 8) -> int:
@@ -47,6 +59,19 @@ def fb_for_batch(b: int, fb: int = 8) -> int:
     return max(fb, 1)
 
 
+def regacc_slots(chunk: int) -> int:
+    """The length of X3's walk list for a chunk: the power of two >=
+    max(chunk, 32)."""
+    return max(32, 1 << (chunk - 1).bit_length())
+
+
+def regacc_shared_bytes(win: int, w: int, chunk: int) -> int:
+    """X3's shared memory per block: the band's win x w uint64 keys
+    (rounded up to 16 B) and the chunk's walk list
+    (``band_shared_bytes``)."""
+    return -(-win * w * 8 // 16) * 16 + regacc_slots(chunk) * SLOT_BYTES
+
+
 class ProbeKernel:
     """One probe of the library.  ``launches`` counts the wrapper calls that
     launched it (and nothing else)."""
@@ -55,6 +80,19 @@ class ProbeKernel:
         self.name = name
         self.probe = probe
         self.launches = 0
+
+    def launch_shape(self, a: int, b: int, h: int, w: int) -> Dict[str, int]:
+        """X2 (a = unroll, b = fb) or X3 (a = win, b = chunk) on an h x w
+        canvas, as the card builds it: registers a thread, static and
+        dynamic shared bytes and threads a block, and resident blocks an
+        SM (``vp_raster_probe_attrs``).  Needs a CUDA device."""
+        out = (ctypes.c_int * 5)()
+        err = LIBRARY.probe_attrs_function()(self.probe, int(a), int(b),
+                                                  int(h), int(w), out)
+        if err != 0:
+            raise RuntimeError(f"{self.name} attributes: CUDA error {err}")
+        return dict(zip(("registers", "static_shared", "dynamic_shared",
+                         "threads", "blocks_per_sm"), out))
 
     def __call__(self, vertices: torch.Tensor, triangles: torch.Tensor,
                  h: int, w: int, a: int, b: int, winner: bool = True):
@@ -101,8 +139,11 @@ def raster_b(vertices: torch.Tensor, triangles: torch.Tensor, h: int = 224,
 
 def raster_u(vertices: torch.Tensor, triangles: torch.Tensor, h: int = 224,
              w: int = 224, fb: int = 8, unroll: int = 2):
-    """X2: K1 with ``unroll`` triangles in each of ``fb`` frames per thread
-    -> (winner, depth), equal to :func:`ops.raster.rasterize_winner`'s."""
+    """X2: K1's balanced walk over warps of 32 x ``unroll`` x ``fb``
+    entries, lane j building ``unroll`` triangles in each of ``fb`` frames
+    -> (winner, depth), equal to :func:`ops.raster.rasterize_winner`'s.
+    A round sums 32 bbox areas, as K1's warp does, so K1's size check
+    (``_check_size``) keeps its sums in 32 bits."""
     if fb not in UNROLLS or unroll not in UNROLLS:
         raise ValueError(f"fb and unroll must each be one of {UNROLLS}, got "
                          f"fb={fb} unroll={unroll}")
@@ -114,18 +155,22 @@ def raster_u(vertices: torch.Tensor, triangles: torch.Tensor, h: int = 224,
 def rasterize_regacc(vertices: torch.Tensor, triangles: torch.Tensor,
                      h: int = 224, w: int = 224, win: int = 16,
                      fb: Optional[int] = None):
-    """X3: the band accumulator over chunks of ``512 // fb`` consecutive
-    triangles (``fb`` defaults to :func:`fb_for_batch`; it sets only the
-    chunk length) -> (winner, depth); ``face3d.raster
-    .rasterize_winner_banded`` is its plain version."""
+    """X3: the shared-memory band accumulator over chunks of ``512 // fb``
+    consecutive triangles (``fb`` defaults to :func:`fb_for_batch`; it
+    sets only the chunk length), walked as K1 walks and flushed over the
+    union rectangle of each chunk's band-clipped bboxes -> (winner,
+    depth); ``face3d.raster.rasterize_winner_banded`` is its plain
+    version."""
     if fb is None:
         fb = fb_for_batch(vertices.shape[0])
     if not 1 <= fb <= 512:
         raise ValueError(f"fb must lie in [1, 512], got {fb}")
-    if not 1 <= win <= h or win * w * 8 > MAX_SHARED_BYTES:
-        raise ValueError(f"band of {win} rows x {w} px does not fit: rows in "
-                         f"[1, {h}], at most {MAX_SHARED_BYTES} B of keys")
     chunk = 512 // fb
+    if (not 1 <= win <= h
+            or regacc_shared_bytes(win, w, chunk) > MAX_SHARED_BYTES):
+        raise ValueError(f"band of {win} rows x {w} px does not fit: rows in "
+                         f"[1, {h}], at most {MAX_SHARED_BYTES} B of keys "
+                         "and walk slots")
     if vertices.device.type == "cpu":
         return plain.rasterize_winner_banded(vertices, triangles, h, w, win,
                                              chunk)

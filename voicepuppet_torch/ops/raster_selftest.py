@@ -29,18 +29,24 @@ hold the plain versions to that spec on the CPU.)
 ``run_probe_selftest(device)`` does the same for the raster A/B probes
 (``ops/raster_probes.py``) on every case above and on a band-fitting
 case: X1 in both modes, X2 at every (fb, unroll), X3 at each of
-``REGACC_SETTINGS``, each bit for bit against its plain version, X2 and
-X1 (off degenerate winners) against K1, and X3 against K1 where every
-chunk fits its band.
+``REGACC_SETTINGS`` and ``REGACC_LISTS``, each bit for bit against its
+plain version, X2 and X1 (off degenerate winners) against K1, and X3
+against K1 where every chunk fits its band.
 
 ``walk_entries``, ``walk_schedule`` and ``bbox_position`` are a CPU model
-of K1/K3's warp schedule (``triangle_kernel`` in ``csrc/raster.cu``) for
-the tests: which bbox pixels each warp's lanes visit, in how many steps.
+of the balanced warp walk (``walk_list`` in ``csrc/raster.cu``) for the
+tests: which bbox pixels each list's lanes visit, in how many steps.
+K1/K3's lists are warps of 32 entries in flat order; ``unroll_order``
+gives X2's (``unroll_walk_kernel``: each lane building ``unroll``
+triangles in ``fb`` frames, walked in rounds of 32 slots, one entry a
+lane, or in lists of any power of two for the tests), and ``band_boxes`` X3's
+(``band_walk_kernel``: one list a block, the bboxes clipped to each
+chunk's band, and each block's union rectangle).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -394,6 +400,9 @@ GROUP_SIZES = (1, 3, 4, 8, 32, 33)
 
 # X3's (win, fb) settings: profile_raster_regacc.py's three variants
 REGACC_SETTINGS = ((16, 8), (16, 4), (8, 8))
+# and those the on-card gate adds: walk lists of 512, 256 and 32 slots
+# (chunks of 512, 256 and 32), the first two past 48 KB of shared memory
+REGACC_LISTS = ((8, 1), (16, 2), (32, 16))
 
 
 def band_fitting_mesh() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -535,9 +544,10 @@ def check_probes_against_plain(vertices: torch.Tensor,
     """Hold every probe against its plain version on the same CUDA tensors,
     bit for bit: X1 with winner and depth-only (whose depth must equal the
     winner mode's), X1 against K1 off degenerate winners, X2 at every
-    (fb, unroll) against K1, X3 at each of REGACC_SETTINGS, and with
-    ``band_fits`` X3 against K1.  Returns the count of pixels K1 gives a
-    degenerate triangle."""
+    (fb, unroll) against K1, X3 at each of REGACC_SETTINGS and
+    REGACC_LISTS (where the band fits the canvas), and with ``band_fits``
+    X3 at REGACC_SETTINGS against K1.  Returns the count of pixels K1
+    gives a degenerate triangle."""
     from voicepuppet_torch.face3d import raster as plain
     from voicepuppet_torch.ops import raster_probes as probes
     if vertices.device.type != "cuda":
@@ -556,13 +566,15 @@ def check_probes_against_plain(vertices: torch.Tensor,
             _expect_pair(probes.raster_u(vertices, triangles, h, w, fb=fb,
                                          unroll=unroll), flat,
                          f"{label} X2 fb {fb} unroll {unroll}")
-    for win, fb in REGACC_SETTINGS:
+    for win, fb in REGACC_SETTINGS + REGACC_LISTS:
+        if win > h:
+            continue
         want = plain.rasterize_winner_banded(vertices, triangles, h, w, win,
                                              512 // fb)
         _expect_pair(probes.rasterize_regacc(vertices, triangles, h, w,
                                              win=win, fb=fb), want,
                      f"{label} X3 win {win} fb {fb}")
-        if band_fits:
+        if band_fits and (win, fb) in REGACC_SETTINGS:
             _expect_pair(want, flat, f"{label} X3 win {win} fb {fb} == K1")
     return deg_won
 
@@ -662,30 +674,107 @@ def bbox_position(q: np.ndarray, width: np.ndarray
 
 
 def walk_schedule(x0: np.ndarray, y0: np.ndarray, bw: np.ndarray,
-                  bh: np.ndarray) -> Tuple[np.ndarray, ...]:
-    """triangle_kernel's walk over the entries of :func:`walk_entries`:
-    each warp of 32 entries scans their bbox areas, then lane j takes pixel
-    r = base + j of the warp's list for base = 0, 32, ... below the total,
-    finds its owner slot by the kernel's binary search over the 32 sums,
-    and its pixel by :func:`bbox_position`.  Returns (entry, x, y) of every
-    pixel visited, and each warp's step count."""
+                  bh: np.ndarray, slots: int = WARP,
+                  order: Optional[np.ndarray] = None
+                  ) -> Tuple[np.ndarray, ...]:
+    """The balanced walk (``walk_list`` in csrc/raster.cu) over the entries
+    of :func:`walk_entries`, taken as lists of ``slots`` (a power of two
+    >= 32): ``order`` gives each list's entries in slot order, -1 for a
+    slot with none (by default K1's, triangle_kernel's: the flat order in
+    warps of 32).  Each list scans its areas, then lane j takes pixel
+    r = base + j of the list for base = 0, 32, ... below its total, finds
+    its owner slot by the log2(slots)-step binary search over the list's
+    sums, and its pixel by :func:`bbox_position`.  Returns (entry, x, y)
+    of every pixel visited, and each list's step count."""
     n = bw.shape[0]
-    nw = -(-n // WARP)
-    area = np.zeros(nw * WARP, np.int64)
-    area[:n] = bw * bh
-    ends = np.cumsum(area.reshape(nw, WARP), 1)          # the warp's scan
+    if order is None:
+        order = np.full(-(-n // WARP) * WARP, -1, np.int64)
+        order[:n] = np.arange(n)
+    order = np.asarray(order, np.int64).reshape(-1, slots)
+    area = np.where(order >= 0, (bw * bh)[np.maximum(order, 0)], 0)
+    ends = np.cumsum(area, 1)                           # each list's scan
     total = ends[:, -1]
-    warp = np.repeat(np.arange(nw), total)
-    r = np.arange(warp.shape[0]) - np.repeat(np.cumsum(total) - total, total)
+    lst = np.repeat(np.arange(order.shape[0]), total)
+    r = np.arange(lst.shape[0]) - np.repeat(np.cumsum(total) - total, total)
     o = np.zeros_like(r)
     start = np.zeros_like(r)
-    for s in (16, 8, 4, 2, 1):
-        e = ends[warp, o + s - 1]
+    s = slots // 2
+    while s:
+        e = ends[lst, o + s - 1]
         take = e <= r
         o = np.where(take, o + s, o)
         start = np.where(take, e, start)
-    entry = warp * WARP + o
+        s //= 2
+    entry = order[lst, o]
     dy, dx = bbox_position(r - start, bw[entry])
-    steps = np.zeros(nw, np.int64)
-    np.maximum.at(steps, warp, r // WARP + 1)
+    steps = np.zeros(order.shape[0], np.int64)
+    np.maximum.at(steps, lst, r // WARP + 1)
     return entry, x0[entry] + dx, y0[entry] + dy, steps
+
+
+def unroll_order(b: int, f: int, unroll: int, fb: int,
+                 round_slots: int = WARP) -> np.ndarray:
+    """X2's slot order at TPT = ``unroll``, FPT = ``fb``: the entry
+    b * F + f of each slot of each walk list, -1 where a slot holds none,
+    as [lists, slots] in launch order.  Thread g = fg x ceil(F / unroll)
+    + tg (lane g % 32 of warp g // 32) takes triangles tg x unroll + k // fb
+    in frames fg x fb + k % fb for its entries k = 0 .. unroll x fb - 1; a
+    warp's lists are its rounds of kr = min(unroll x fb, round_slots / 32)
+    entries a lane, each list in lane-major slot order lane x kr +
+    (k mod kr).  unroll_walk_kernel's rounds are the default, 32 slots
+    (kr = 1, lane j in slot j); longer lists model the same entries walked
+    as one list of up to 32 x unroll x fb slots."""
+    ntg = -(-f // unroll)
+    n = ntg * -(-b // fb)
+    k_all = unroll * fb
+    kr = min(k_all, round_slots // WARP)
+    g = np.arange(-(-n // WARP) * WARP).reshape(-1, 1, WARP, 1)
+    k = (np.arange(k_all // kr) * kr).reshape(1, -1, 1, 1) + np.arange(kr)
+    tri = (g % ntg) * unroll + k // fb
+    frame = (g // ntg) * fb + k % fb
+    ok = (g < n) & (tri < f) & (frame < b)
+    return np.where(ok, frame * f + tri, -1).reshape(-1, WARP * kr)
+
+
+def band_boxes(vertices: np.ndarray, triangles: np.ndarray, h: int, w: int,
+               win: int, chunk: int) -> Tuple[np.ndarray, ...]:
+    """band_walk_kernel's entries: one block per (frame, chunk of
+    ``chunk`` triangles), block b x nc + c, whose thread i takes triangle
+    chunk x c + i into slot i of the block's list of NS slots (the power
+    of two >= max(chunk, 32)), which the whole block walks.  Each entry's
+    :func:`walk_entries` bbox is clipped to its chunk's band rows
+    [y0, y0 + win) (``face3d.raster.band_origins``); an entry with no row
+    left has area 0.  Returns (x0, y0, width, height) of the clipped
+    bboxes in the flat order b * F + f, the blocks' lists [B x nc, NS]
+    (-1 past the chunk), and each block's union rectangle
+    [B x nc, 4] as (x0, x1, y0, y1) of the clipped bboxes that draw,
+    (2^31 - 1, -1, 2^31 - 1, -1) for a block with none."""
+    from voicepuppet_torch.face3d import raster as plain
+    v = np.asarray(vertices, np.float32)
+    v = v if v.ndim == 3 else v[None]
+    t = np.asarray(triangles, np.int32)
+    nb, f = v.shape[0], t.shape[0]
+    nc = -(-f // chunk)
+    x0, y0, bw, bh = walk_entries(v, t, h, w)
+    band = plain.band_origins(torch.from_numpy(v), torch.from_numpy(t), h,
+                              win, chunk).numpy()               # [B, nc]
+    tri = np.tile(np.arange(f), nb)
+    lo = band[np.repeat(np.arange(nb), f), tri // chunk]
+    ya = np.maximum(y0, lo)
+    yb = np.minimum(y0 + bh - 1, lo + win - 1)
+    live = (bw > 0) & (bh > 0) & (yb >= ya)
+    cx0, cy0 = np.where(live, x0, 0), np.where(live, ya, 0)
+    cbw, cbh = np.where(live, bw, 0), np.where(live, yb - ya + 1, 0)
+    i = np.arange(max(WARP, 1 << (chunk - 1).bit_length()))
+    blk = np.arange(nb * nc)[:, None]
+    ftri = (blk % nc) * chunk + i
+    order = np.where((i < chunk) & (ftri < f), (blk // nc) * f + ftri, -1)
+    big = np.int64(2 ** 31 - 1)
+    union = np.empty((nb * nc, 4), np.int64)
+    block_of = (np.repeat(np.arange(nb), f) * nc + tri // chunk)[live]
+    for col, (vals, fill, red) in enumerate((
+            (cx0, big, np.minimum), (cx0 + cbw - 1, -1, np.maximum),
+            (cy0, big, np.minimum), (cy0 + cbh - 1, -1, np.maximum))):
+        union[:, col] = fill
+        red.at(union[:, col], block_of, vals[live])
+    return cx0, cy0, cbw, cbh, order, union
