@@ -55,15 +55,19 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         scripts' shapes (B = 16 at 224², the 189² and 192²
                         meshes) each probe bit for bit against its plain
                         version, X2 against K1 at (1, 1) and four settings,
-                        X1 against K1 off degenerate winners; then every
+                        X1 against K1 off degenerate winners (X1 on both
+                        meshes: the 192²'s warps straddle frames); then every
                         profile entry point (voicepuppet_torch/experiments/)
                         once at K = 2 and one round, where every probe must
                         launch; probe times beside K1's, plain and bound
                         (X2 at (1, 1) and profile_raster3's settings, X3 at
-                        raster_selftest.REGACC_SETTINGS), each X2 and X3
-                        launch's registers, shared bytes and blocks an SM,
-                        and X3's union rectangles against whole bands (the
-                        CPU model).
+                        raster_selftest.REGACC_SETTINGS), each X1 (both
+                        modes), X2 and X3 launch's registers, shared bytes
+                        and blocks an SM, and the probe's time over K1's;
+                        one K1 and one X1 call in each mode split into its
+                        device launches (torch.profiler); X1's walk steps
+                        against K1's and X3's union rectangles against
+                        whole bands (the CPU model).
   8. reference checks   the card against the port on the CPU (float32
                         everywhere): the full-width expression coefficients,
                         and whole frames at a small size (ngf 8, 256²); the
@@ -301,7 +305,9 @@ def device_split(fn, calls=5):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = next((k for k in ("triangle_kernel", "unroll_walk_kernel",
-                                 "resolve_kernel", "Memset") if k in evt.name),
+                                 "inside_only_walk_kernel",
+                                 "depth_resolve_kernel", "resolve_kernel",
+                                 "Memset") if k in evt.name),
                     evt.name[:48])
         n, total = split.get(name, (0, 0.0))
         split[name] = (n + 1, total + evt.time_range.elapsed_us())
@@ -3342,9 +3348,7 @@ def main():
     # the walk steps of these inputs (ops/raster_selftest.py's CPU model)
     x0, y0, bw, bh = raster_selftest.walk_entries(verts.cpu().numpy(),
                                                   tri.cpu().numpy(), 224, 224)
-    area = np.zeros(-(-bw.size // 32) * 32, np.int64)
-    area[:bw.size] = bw * bh
-    area = area.reshape(-1, 32)
+    area = raster_selftest.warp_areas(bw, bh)
     old_steps, new_steps = int(area.max(1).sum()), int(
         (-(-area.sum(1) // 32)).sum())
     log(f"raster B={CHUNK} walk steps (CPU model): one-thread walk "
@@ -3385,6 +3389,20 @@ def main():
         x1_deg = raster_selftest.expect_inside_only_matches_k1(
             x1[0], pk1[0], pv, ptri, "probe mesh")
         x1_err = float((x1[1] - x1_want[1]).abs().max())
+        rk1 = plain.rasterize_winner(rv, rtri, 224, 224)
+        # the 192² mesh: F = 72,962 is no multiple of 32, so X1's warps
+        # straddle frames there
+        rx1_want = plain.rasterize_winner_inside_only(rv, rtri, 224, 224)
+        rx1 = probes.raster_b(rv, rtri, 224, 224)
+        rx1_depth = probes.raster_b(rv, rtri, 224, 224, winner=False)
+        torch.cuda.synchronize()
+        for got, want, part in ((rx1[0], rx1_want[0], "winner"),
+                                (rx1[1], rx1_want[1], "depth"),
+                                (rx1_depth, rx1_want[1], "depth-only")):
+            raster_selftest.expect_equal(got, want,
+                                         f"192² probe mesh X1 {part}")
+        rx1_deg = raster_selftest.expect_inside_only_matches_k1(
+            rx1[0], rk1[0], rv, rtri, "192² probe mesh")
         x2_err = 0.0
         x2_settings = ((1, 1),) + profile_raster3.SETTINGS   # (fb, unroll)
         for fb, unroll in x2_settings:
@@ -3395,7 +3413,6 @@ def main():
             raster_selftest.expect_equal(x2[1], pk1[1],
                                          f"X2 fb {fb} unroll {unroll} depth")
             x2_err = max(x2_err, float((x2[1] - pk1[1]).abs().max()))
-        rk1 = plain.rasterize_winner(rv, rtri, 224, 224)
         x3_err, x3_off_k1 = 0.0, {}
         for win, fb in raster_selftest.REGACC_SETTINGS:
             want = plain.rasterize_winner_banded(rv, rtri, 224, 224, win,
@@ -3411,7 +3428,9 @@ def main():
     log(f"probe parity: B={PROBE_BATCH} 224², {ptri.shape[0]} triangles: "
         f"X1 == plain in both modes, == K1 off degenerate winners ({x1_deg} "
         f"px won by degenerate triangles in K1); X2 == K1 at (fb, unroll) "
-        f"{x2_settings}; {rtri.shape[0]} triangles: X3 == "
+        f"{x2_settings}; {rtri.shape[0]} triangles (warps straddle "
+        f"frames): X1 == plain in both modes, == K1 off degenerate winners "
+        f"({rx1_deg} px); X3 == "
         f"plain at {raster_selftest.REGACC_SETTINGS}, pixels off K1 "
         f"{json.dumps(x3_off_k1)}")
 
@@ -3479,8 +3498,36 @@ def main():
         f"({x3_bound[1]}: {x3_bound[2]} B, {x3_bound[3]} ops); decision "
         f"K1 / X3 win16 fb8 = {rk1_ms / x3_ms['win16_fb8']:.3f} "
         f"(tile binning only at >= 1.3); {card}")
-    # each X2 and X3 launch as the card builds it, and X3's union
-    # rectangles against whole bands (ops/raster_selftest.py's CPU model)
+    # each X1, X2 and X3 launch as the card builds it, X1's walk steps
+    # against K1's and X3's union rectangles against whole bands
+    # (ops/raster_selftest.py's CPU model)
+    pv_np, ptri_np = pv.cpu().numpy(), ptri.cpu().numpy()
+    k1_box = raster_selftest.walk_entries(pv_np, ptri_np, 224, 224)
+    x1_box = raster_selftest.inside_only_entries(pv_np, ptri_np, 224, 224)
+    walk_steps = [int((-(-raster_selftest.warp_areas(bw, bh).sum(1) // 32))
+                      .sum()) for bw, bh in (k1_box[2:], x1_box[2:])]
+    # and each call split into its device launches (memset, walk, resolve)
+    with torch.inference_mode():
+        splits = {"K1": device_split(
+            lambda: tops.rasterize_winner(pv, ptri, 224, 224))}
+        for winner, mode, ms in ((1, "winner", x1_ms),
+                                 (0, "depth-only", x1d_ms)):
+            splits[mode] = device_split(
+                lambda winner=winner: probes.raster_b(pv, ptri, 224, 224,
+                                                      winner=bool(winner)))
+            shape = probes.PROBE_INSIDE_ONLY.launch_shape(winner, 0, 224,
+                                                          224)
+            log(f"probe launch X1 {mode} (inside_only_walk_kernel<"
+                f"{'false' if winner else 'true'}>): {json.dumps(shape)}, "
+                f"{ms:.4f} ms, {ms / pk1_ms:.3f}x K1; walk steps (CPU "
+                f"model) {walk_steps[1]} against K1's {walk_steps[0]}; "
+                f"{card}")
+    for label, split in splits.items():
+        log(f"split B={PROBE_BATCH} probe mesh, {label}: "
+            + (json.dumps({k: {"launches": n, "mean_us": us}
+                           for k, (n, us) in split.items()})
+               if split else "the profiler recorded no device event")
+            + f" (5 calls, torch.profiler); {card}")
     for fb, unroll in x2_settings:
         shape = probes.PROBE_UNROLL.launch_shape(unroll, fb, 224, 224)
         ms = x2_ms[f"U{unroll}_fb{fb}"]

@@ -16,6 +16,7 @@ outside a bbox may pass its inside test by rounding: such pixels are
 borderline by the same proof.  The departing pixel counts are printed.
 """
 
+import argparse
 import ast
 import functools
 import os
@@ -31,7 +32,7 @@ from voicepuppet_tpu.face3d import morph as jmorph
 from voicepuppet_tpu.ops import raster_pallas as jpallas
 
 from voicepuppet_torch import ops as tops
-from voicepuppet_torch.experiments import _timing
+from voicepuppet_torch.experiments import _common, _timing
 from voicepuppet_torch.face3d import raster as traster
 from voicepuppet_torch.ops import raster_probes as tprobes
 from voicepuppet_torch.ops import raster_selftest as tself
@@ -410,7 +411,7 @@ def test_profile_entry_point_runs_on_cpu(name, capsys):
         assert "decision:" in out
 
 
-# ---- CPU models of X2's and X3's walks (ops/raster_selftest.py) -------------
+# ---- CPU models of X1's, X2's and X3's walks (ops/raster_selftest.py) -------
 
 # one (unroll, fb) setting whose warp holds L = 32 x unroll x fb entries
 SETTING_FOR_L = {32: (1, 1), 64: (2, 1), 256: (4, 2), 2048: (8, 8)}
@@ -437,11 +438,12 @@ def _expect_walk_covers(v, t, h, w, boxes, visits, label):
                                   err_msg=label)
 
 
-def _drawn(v, t, h, w):
+def _drawn(v, t, h, w, drop_degenerate=False):
     """(flat entry b * F + f, frame, pixel within the frame) of every
-    fragment K1's plain version draws."""
+    fragment K1's plain version draws (X1's with ``drop_degenerate``)."""
     tri, pix, _ = traster._fragments(torch.from_numpy(v), torch.from_numpy(t),
-                                     h, w, False)
+                                     h, w, False,
+                                     drop_degenerate=drop_degenerate)
     frame = pix.numpy() // (h * w)
     return frame * t.shape[0] + tri.numpy(), frame, pix.numpy() % (h * w)
 
@@ -508,6 +510,61 @@ def test_unroll_walk_model_in_rounds(unroll, fb, rounds):
     entry, x, y, _ = tself.walk_schedule(*boxes, slots=order.shape[1],
                                          order=order)
     _expect_walk_covers(v, t, h, w, boxes, (entry, x, y), "soup")
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_inside_only_walk_model_visits_every_bbox_pixel_once(name):
+    """X1's schedule (``inside_only_entries`` walked in K1's warps of 32):
+    every bbox pixel of every non-degenerate entry that draws is visited
+    exactly once and no pixel of a degenerate entry, every fragment X1's
+    plain version draws is visited, each warp takes ceil(its area / 32)
+    steps, and on a case with no degenerate entry that has a pixel the
+    schedule is K1's."""
+    v, t, h, w = _model_case(name)
+    boxes = tself.inside_only_entries(v, t, h, w)
+    entry, x, y, steps = tself.walk_schedule(*boxes)
+    _expect_walk_covers(v, t, h, w, boxes, (entry, x, y), name)
+    deg = traster.degenerate(torch.from_numpy(v),
+                             torch.from_numpy(t)).numpy().reshape(-1)
+    assert not deg[entry].any()
+    k1 = tself.walk_entries(v, t, h, w)
+    for got, want in zip(boxes, k1):        # only degenerate entries differ
+        np.testing.assert_array_equal(got[~deg], want[~deg])
+    drawn, _, pix = _drawn(v, t, h, w, drop_degenerate=True)
+    assert np.isin(drawn * (h * w) + pix, entry * (h * w) + y * w + x).all()
+    np.testing.assert_array_equal(
+        steps, -(-tself.warp_areas(boxes[2], boxes[3]).sum(1) // tself.WARP))
+    if not (deg & (k1[2] * k1[3] > 0)).any():
+        for got, want in zip((entry, x, y, steps), tself.walk_schedule(*k1)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_inside_only_walk_steps_on_the_probe_mesh():
+    """On the probe mesh (``_common.probe_mesh``: the 189² synthetic BFM,
+    seeds 0 and 1) at B = 2, 224²: X1's warp steps are K1's less only the
+    degenerate entries' share, warp by warp, and equal K1's in every warp
+    without a degenerate pixel.  F = 70,688 = 32 x 2,209, so no warp
+    straddles frames here (the 192² mesh's do, on the card)."""
+    vt, tt = _common.probe_mesh(argparse.Namespace(device="cpu", batch=2,
+                                                   mesh=189), 0, 1)
+    v, t = vt.numpy(), tt.numpy()
+    assert t.shape[0] == 32 * 2209
+    k1 = tself.walk_entries(v, t, 224, 224)
+    x1 = tself.inside_only_entries(v, t, 224, 224)
+    deg = traster.degenerate(vt, tt).numpy().reshape(-1)
+    k1_area = tself.warp_areas(k1[2], k1[3]).sum(1)
+    deg_area = tself.warp_areas(np.where(deg, k1[2], 0), k1[3]).sum(1)
+    assert deg_area.sum() > 0
+    _, _, _, k1_steps = tself.walk_schedule(*k1)
+    _, _, _, x1_steps = tself.walk_schedule(*x1)
+    np.testing.assert_array_equal(k1_steps, -(-k1_area // tself.WARP))
+    np.testing.assert_array_equal(
+        x1_steps, -(-(k1_area - deg_area) // tself.WARP))
+    np.testing.assert_array_equal(x1_steps[deg_area == 0],
+                                  k1_steps[deg_area == 0])
+    print(f"probe mesh B=2: K1 {k1_steps.sum()} warp steps, X1 "
+          f"{x1_steps.sum()}, {deg.sum()} degenerate entries, "
+          f"{deg_area.sum()} of {k1_area.sum()} bbox px")
 
 
 def _band_case(name):

@@ -12,7 +12,7 @@
 //   K5 _raster_kernel_interp_grouped: K3 merged per group, as K4 is K1;
 // and the raster A/B probes of experiments/ (X1 _kernel_b, X2
 // _kernel_unroll, X3 _regacc_kernel; near the end, behind vp_raster_probe),
-// X2 and X3 built on K1's balanced walk (walk_list) and differing from it
+// all three built on K1's balanced walk (walk_list) and differing from it
 // only in what they probe.
 // The TPU kernels walk triangles in index order over a VMEM-resident depth
 // window; windows, 8-aligned origins, frame interleave and 128-lane x-bands
@@ -30,19 +30,20 @@
 //           atomics land in.  -0.0 is made +0.0 first, because the key
 //           orders them while '>' does not; NaN and depths <= -99999 never
 //           draw.
-//             per-triangle (K1, K3): lane j of a warp takes the (frame,
-//           triangle) entry first + j of the flat order b * F + f, builds
-//           its setup (p0, edge vectors, dot products, inv_deno, in the
-//           operation order of face3d/raster_ref.py:_point_in_tri) and stores
-//           it, with its bbox's magic number and its frame's offset, into the
-//           warp's shared slot j as five 16-byte words.  The warp scans the 32
+//             per-triangle (K1, K3; warp_walk, which X1 shares): lane j of a
+//           warp takes the (frame, triangle) entry first + j of the flat
+//           order b * F + f, builds its setup (p0, edge vectors, dot
+//           products, inv_deno, in the operation order of
+//           face3d/raster_ref.py:_point_in_tri) and stores it, with its
+//           bbox's magic number and its frame's offset, into the warp's
+//           shared slot j as five 16-byte words.  The warp scans the 32
 //           clipped bbox areas (0 for an entry that cannot draw) with
 //           shuffles, and then walks all 32 bboxes as one list of sum(area)
-//           pixels, 32 adjacent ones a step: lane j takes pixel r = base + j,
-//           finds its owner slot by a binary search over the 32 sums (5
+//           pixels, 32 adjacent ones a step: lane j takes pixel r = base +
+//           j, finds its owner slot by a binary search over the 32 sums (5
 //           shared loads), loads the owner's slot (5 128-bit loads), and
-//           finds (x, y) from the row-major position q in the owner's bbox by
-//           one __umulhi with the magic number and one correction (no
+//           finds (x, y) from the row-major position q in the owner's bbox
+//           by one __umulhi with the magic number and one correction (no
 //           division per pixel).  A warp takes ceil(sum(area) / 32) steps.
 //             What bounds it: the earlier form gave each entry one thread
 //           that walked its bbox alone, so a warp took as long as its
@@ -357,21 +358,23 @@ __device__ __forceinline__ void walk_list(const WalkSlot* slots,
   }
 }
 
-// K1/K3: one warp per 32 consecutive (frame, triangle) entries, whose bbox
-// pixels its 32 lanes walk together, 32 adjacent pixels a step (header
-// note).
-template <bool INTERP>
-__global__ void __launch_bounds__(32 * kWalkWarps)
-triangle_kernel(const float* __restrict__ verts,
-                const int* __restrict__ tris, int B, int V, int F, int H,
-                int W, unsigned long long* __restrict__ zbuf) {
-  __shared__ WalkSlot slots[kWalkWarps][32];
-  __shared__ unsigned ends[kWalkWarps][32];    // inclusive sums of areas
+// The warp body of K1/K3 and X1: lane j of the warp builds the (frame,
+// triangle) entry first + j of the flat order b * F + f into the warp's
+// slot j, the warp scans the 32 areas and walks them with walk_list, and
+// emit(off, x, y, key) stores each fragment that draws (header note).
+// With DROP_DEGENERATE (X1) an entry whose inv_deno is 0 gets area 0.
+template <bool INTERP, bool DROP_DEGENERATE, typename Emit>
+__device__ __forceinline__ void warp_walk(const float* __restrict__ verts,
+                                          const int* __restrict__ tris,
+                                          int B, int V, int F, int H, int W,
+                                          WalkSlot* slots, unsigned* ends,
+                                          Emit emit) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long n = (long long)B * F;
   const long long first = ((long long)blockIdx.x * kWalkWarps + warp) * 32;
   // Scan hazard: only a warp whose first entry is past the end leaves; the
-  // scan below takes the full mask, so a lane past the end stays in with
+  // scan below takes the full mask, so a lane past the end, or whose entry
+  // cannot draw (or, with DROP_DEGENERATE, is degenerate), stays in with
   // area 0.
   if (first >= n) return;
   const long long idx = first + lane;
@@ -384,26 +387,40 @@ triangle_kernel(const float* __restrict__ verts,
     const int b = i / F;
     const int f = i - b * F;
     Tri t;
-    if (tri_setup<INTERP>(verts + (size_t)b * V * 3, tris, f, V, H, W,
-                          t)) {
+    if (tri_setup<INTERP>(verts + (size_t)b * V * 3, tris, f, V, H, W, t) &&
+        !(DROP_DEGENERATE && t.inv == 0.0f)) {
       const int w = t.x1 - t.x0 + 1;
       area = (unsigned)(w * (t.y1 - t.y0 + 1));   // <= H * W
       // floor((2^32 - 1) / w) + 1 wraps to 0 at w = 1 only
-      store_slot(slots[warp][lane], t, 0xFFFFFFFFu / (unsigned)w + 1u,
-                 b * H * W);
+      store_slot(slots[lane], t, 0xFFFFFFFFu / (unsigned)w + 1u, b * H * W);
     }
   }
   // Inclusive scan of the areas in 32 bits: one degenerate triangle's bbox
   // may be the whole canvas, but the wrapper admits 32 * H * W < 2^31 only,
   // so a warp's total, and every pixel index r + 32 below, stays < 2^32.
   const unsigned end = warp_inclusive_sum(area, lane);
-  ends[warp][lane] = end;
+  ends[lane] = end;
   const unsigned total = __shfl_sync(0xFFFFFFFFu, end, 31);
   __syncwarp();   // the slots and sums are read by every lane below
-  walk_list<INTERP, 32>(slots[warp], ends[warp], total, lane, 32, H, W,
-                        [&](int off, int x, int y, unsigned long long key) {
-                          atomicMax(zbuf + off + (size_t)y * W + x, key);
-                        });
+  walk_list<INTERP, 32>(slots, ends, total, lane, 32, H, W, emit);
+}
+
+// K1/K3: one warp per 32 consecutive (frame, triangle) entries, whose bbox
+// pixels its 32 lanes walk together, 32 adjacent pixels a step (header
+// note).
+template <bool INTERP>
+__global__ void __launch_bounds__(32 * kWalkWarps)
+triangle_kernel(const float* __restrict__ verts,
+                const int* __restrict__ tris, int B, int V, int F, int H,
+                int W, unsigned long long* __restrict__ zbuf) {
+  __shared__ WalkSlot slots[kWalkWarps][32];
+  __shared__ unsigned ends[kWalkWarps][32];    // inclusive sums of areas
+  const int warp = threadIdx.x >> 5;
+  warp_walk<INTERP, false>(
+      verts, tris, B, V, F, H, W, slots[warp], ends[warp],
+      [&](int off, int x, int y, unsigned long long key) {
+        atomicMax(zbuf + off + (size_t)y * W + x, key);
+      });
 }
 
 // Reductions over the T lanes of one tile (T a power of two; at T = 1 the
@@ -606,44 +623,42 @@ __global__ void resolve_kernel(const unsigned long long* __restrict__ zbuf,
 // Each is K1 changed in the one respect it probes.  All share tri_setup,
 // pixel_key, orderable and the resolve pass, so their outputs are the plain
 // versions' in face3d/raster.py bit for bit (and no FMA creeps into any of
-// them); X2 and X3 also walk with K1's walk_list, so a probe's time against
-// K1's in the same run measures its change, not a different walk.  Bound:
-// the vertices and triangles read once and the probe's own outputs written
+// them); all three walk with K1's walk_list, so a probe's time against K1's
+// in the same run measures its change, not a different walk.  Bound: the
+// vertices and triangles read once and the probe's own outputs written
 // once, bytes-bound like K1 (about 4.2 us for B = 16 frames of the 189²
-// mesh at 224²; chip_smoke.py computes it from each run's inputs).  X1
-// still walks each bbox with one thread, as K1 did before its redesign.
+// mesh at 224²; chip_smoke.py computes it from each run's inputs).
 
-// X1 (_kernel_b, profile_raster2.py:49): K1 with degenerate triangles
-// (inv_deno == 0) dropped at setup, as _trim_table's depth -1e10 does.
+// X1 (_kernel_b, profile_raster2.py:49): triangle_kernel<false>, its grid,
+// its slots and its walk (warp_walk), with the two things the TPU probe
+// measures: degenerate triangles (inv_deno == 0) get area 0 and no slot,
+// as _trim_table's depth -1e10 drops them (profile_raster2.py:31-44); and
 // DEPTH_ONLY stores the key's depth half with a 32-bit atomicMax into a
-// [B,H,W] uint32 buffer: the TPU probe's "lower-bound signal for store
-// cost" (profile_raster2.py:7) as the 64-bit key's cost against a
-// depth-only store.
+// [B,H,W] uint32 buffer, at the same element offset off + y * W + x (the
+// slot's frame offset counts elements, so it indexes either buffer): the
+// probe's "lower-bound signal for store cost" (profile_raster2.py:7), the
+// 64-bit key's atomic, twice the memset and an 8-byte resolve against a
+// depth-only store.  Empty-value hazard: 0 in either buffer means empty to
+// its resolve pass; a fragment that draws has depth > -99999, not NaN, so
+// orderable(depth), the key's high half, is never 0 (and -0.0 was made
+// +0.0 in tri_setup_at, so both modes resolve the same canonical depth).
 template <bool DEPTH_ONLY>
-__global__ void inside_only_kernel(const float* __restrict__ verts,
-                                   const int* __restrict__ tris, int B,
-                                   int V, int F, int H, int W,
-                                   void* __restrict__ zbuf) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * F) return;
-  const int b = (int)(idx / F);
-  const int f = (int)(idx - (long long)b * F);
-  Tri t;
-  if (!tri_setup<false>(verts + (size_t)b * V * 3, tris, f, V, H, W, t) ||
-      t.inv == 0.0f)
-    return;
-  const size_t base = (size_t)b * H * W;
-  for (int y = t.y0; y <= t.y1; ++y) {
-    for (int x = t.x0; x <= t.x1; ++x) {
-      const unsigned long long key = pixel_key<false>(t, x, y, H, W);
-      if (!key) continue;
-      const size_t p = base + (size_t)y * W + x;
-      if (DEPTH_ONLY)
-        atomicMax((unsigned int*)zbuf + p, (unsigned int)(key >> 32));
-      else
-        atomicMax((unsigned long long*)zbuf + p, key);
-    }
-  }
+__global__ void __launch_bounds__(32 * kWalkWarps)
+inside_only_walk_kernel(const float* __restrict__ verts,
+                        const int* __restrict__ tris, int B, int V, int F,
+                        int H, int W, void* __restrict__ zbuf) {
+  __shared__ WalkSlot slots[kWalkWarps][32];
+  __shared__ unsigned ends[kWalkWarps][32];    // inclusive sums of areas
+  const int warp = threadIdx.x >> 5;
+  warp_walk<false, true>(
+      verts, tris, B, V, F, H, W, slots[warp], ends[warp],
+      [&](int off, int x, int y, unsigned long long key) {
+        const size_t p = off + (size_t)y * W + x;
+        if (DEPTH_ONLY)
+          atomicMax((unsigned int*)zbuf + p, (unsigned int)(key >> 32));
+        else
+          atomicMax((unsigned long long*)zbuf + p, key);
+      });
 }
 
 __global__ void depth_resolve_kernel(const unsigned int* __restrict__ zbuf,
@@ -1151,11 +1166,14 @@ extern "C" int vp_raster_probe(const float* vertices, const int* triangles,
   if (nt > 0) {
     const unsigned tblocks = (unsigned)((nt + threads - 1) / threads);
     if (probe == 0) {
+      // X1 on triangle_kernel's grid: blocks of 256 = 32 x kWalkWarps
+      // threads, one warp per 32 consecutive entries
+      static_assert(32 * kWalkWarps == 256, "X1's grid is K1's");
       if (depth_only)
-        inside_only_kernel<true><<<tblocks, threads, 0, s>>>(
+        inside_only_walk_kernel<true><<<tblocks, threads, 0, s>>>(
             vertices, triangles, B, V, F, H, W, zbuf);
       else
-        inside_only_kernel<false><<<tblocks, threads, 0, s>>>(
+        inside_only_walk_kernel<false><<<tblocks, threads, 0, s>>>(
             vertices, triangles, B, V, F, H, W, zbuf);
       err = cudaGetLastError();
     } else if (probe == 1) {
@@ -1180,13 +1198,19 @@ extern "C" int vp_raster_probe(const float* vertices, const int* triangles,
   return (int)cudaGetLastError();
 }
 
-// The launch shape of probe 1 (X2: a = TPT, b = FPT) or probe 2 (X3: a =
-// win, b = chunk) on an H x W canvas: out[0] registers a thread, out[1]
-// static and out[2] dynamic shared bytes a block, out[3] threads a block,
-// out[4] resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-// Returns a CUDA error code (cudaErrorInvalidValue as vp_raster_probe).
+// The launch shape of probe 0 (X1: a = 1 winner, 0 depth-only), probe 1
+// (X2: a = TPT, b = FPT) or probe 2 (X3: a = win, b = chunk) on an H x W
+// canvas: out[0] registers a thread, out[1] static and out[2] dynamic
+// shared bytes a block, out[3] threads a block, out[4] resident blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a CUDA error
+// code (cudaErrorInvalidValue as vp_raster_probe).
 extern "C" int vp_raster_probe_attrs(int probe, int a, int b, int H, int W,
                                      int* out) {
+  if (probe == 0)
+    return (int)kernel_attrs(
+        a ? (const void*)inside_only_walk_kernel<false>
+          : (const void*)inside_only_walk_kernel<true>,
+        32 * kWalkWarps, 0, out);
   if (probe == 1) {
     if (!unroll_ok(a, b)) return (int)cudaErrorInvalidValue;
     UnrollAttrs op{out};

@@ -6,6 +6,9 @@ Port of experiments/profile_raster2.py.  Variants:
      bounds the pixels and the inside test alone decides
   D  X1 depth-only: a 32-bit depth store in place of the 64-bit key, the
      lower-bound signal for the store's cost
+X1 runs K1's kernel design (one warp walks the bboxes of 32 consecutive
+entries as one balanced list), so B and D against A, printed as X1/K1,
+read what the probe changes and nothing else.
 Mesh: synthetic_bfm(189, 189, seed=0), 16 frames of demo_coeff(seed=1).
 
     python -m voicepuppet_torch.experiments.profile_raster2 [--device cpu]
@@ -39,9 +42,13 @@ def main(argv=None):
           f"{float((wa != wb).float().mean()):.6f} (expected >0 only from "
           f"degenerate-quirk pixels; {deg_won} degenerate triangle-frames)",
           flush=True)
-    return _common.time_variants(
+    per = _common.time_variants(
         cases, verts, args, f"FINAL per-iteration (ms, {args.batch} "
         f"frames, {f} tris, K={args.k})", args.batch * f)
+    for name in ("B_no_inbox", "D_depth_only"):
+        print(f"  X1/K1 {name}: {per[name] / per['A_production']:.3f}",
+              flush=True)
+    return per
 
 
 if __name__ == "__main__":

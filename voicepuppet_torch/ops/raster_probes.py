@@ -9,13 +9,14 @@ their entry points there:
   rasterize_regacc  X3  ``_regacc_kernel``   experiments/profile_raster_regacc.py:49
 
 Each probe is K1 (``ops/raster.py``) changed in the one respect it
-measures, and runs in ``csrc/raster.cu`` behind ``vp_raster_probe``; X2
-and X3 walk with K1's balanced warp walk, so their times against K1's in
+measures, and runs in ``csrc/raster.cu`` behind ``vp_raster_probe``; all
+three walk with K1's balanced warp walk, so their times against K1's in
 one run measure the change alone:
 
-  X1  degenerate triangles draw nothing, and ``winner=False`` stores only
-      depth (a 32-bit atomicMax in place of the 64-bit key); each bbox is
-      still walked by one thread;
+  X1  K1's kernel, grid and walk (32 entries a warp, their bboxes walked
+      as one list), except that degenerate triangles draw nothing, and
+      ``winner=False`` stores only depth (a 32-bit atomicMax in place of
+      the 64-bit key, into a buffer of half the size);
   X2  lane j of a warp builds ``unroll`` consecutive triangles in each of
       ``fb`` consecutive frames (a triangle's indices loaded once for its
       frames), and the warp walks its 32 x unroll x fb entries in
@@ -82,10 +83,11 @@ class ProbeKernel:
         self.launches = 0
 
     def launch_shape(self, a: int, b: int, h: int, w: int) -> Dict[str, int]:
-        """X2 (a = unroll, b = fb) or X3 (a = win, b = chunk) on an h x w
-        canvas, as the card builds it: registers a thread, static and
-        dynamic shared bytes and threads a block, and resident blocks an
-        SM (``vp_raster_probe_attrs``).  Needs a CUDA device."""
+        """X1 (a = 1 winner, 0 depth-only; b unused), X2 (a = unroll,
+        b = fb) or X3 (a = win, b = chunk) on an h x w canvas, as the card
+        builds it: registers a thread, static and dynamic shared bytes and
+        threads a block, and resident blocks an SM
+        (``vp_raster_probe_attrs``).  Needs a CUDA device."""
         out = (ctypes.c_int * 5)()
         err = LIBRARY.probe_attrs_function()(self.probe, int(a), int(b),
                                                   int(h), int(w), out)
@@ -129,7 +131,8 @@ def raster_b(vertices: torch.Tensor, triangles: torch.Tensor, h: int = 224,
              w: int = 224, winner: bool = True):
     """X1: K1 with degenerate triangles drawing nothing -> (winner, depth),
     or with ``winner=False`` the depth buffer alone (the probe's
-    depth-only variant)."""
+    depth-only variant).  It walks as K1 does, 32 bbox areas a warp, so
+    K1's size check (``_check_size``) keeps its sums in 32 bits."""
     if vertices.device.type == "cpu":
         return plain.rasterize_winner_inside_only(vertices, triangles, h, w,
                                                   winner)

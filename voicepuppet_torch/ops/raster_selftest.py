@@ -36,7 +36,9 @@ against K1 where every chunk fits its band.
 ``walk_entries``, ``walk_schedule`` and ``bbox_position`` are a CPU model
 of the balanced warp walk (``walk_list`` in ``csrc/raster.cu``) for the
 tests: which bbox pixels each list's lanes visit, in how many steps.
-K1/K3's lists are warps of 32 entries in flat order; ``unroll_order``
+K1/K3's lists are warps of 32 entries in flat order, and so are X1's
+(``inside_only_walk_kernel``), whose entries ``inside_only_entries``
+gives (degenerate triangles with area 0); ``unroll_order``
 gives X2's (``unroll_walk_kernel``: each lane building ``unroll``
 triangles in ``fb`` frames, walked in rounds of 32 slots, one entry a
 lane, or in lists of any power of two for the tests), and ``band_boxes`` X3's
@@ -656,6 +658,32 @@ def walk_entries(vertices: np.ndarray, triangles: np.ndarray, h: int, w: int,
     bw = np.where(live, x1 - x0 + 1, 0)
     bh = np.where(live, y1 - y0 + 1, 0)
     return tuple(a.reshape(-1).astype(np.int64) for a in (x0, y0, bw, bh))
+
+
+def inside_only_entries(vertices: np.ndarray, triangles: np.ndarray,
+                        h: int, w: int) -> Tuple[np.ndarray, ...]:
+    """X1's entries (``inside_only_walk_kernel``), walked in K1's warps:
+    :func:`walk_entries` of the flat depth, with every degenerate entry
+    (``face3d.raster.degenerate``, inv_deno == 0) given width and height 0
+    and origin (0, 0), as the kernel gives it area 0 and no slot."""
+    from voicepuppet_torch.face3d import raster as plain
+    v = np.asarray(vertices, np.float32)
+    v = v if v.ndim == 3 else v[None]
+    t = np.asarray(triangles, np.int32)
+    x0, y0, bw, bh = walk_entries(v, t, h, w)
+    deg = plain.degenerate(torch.from_numpy(v),
+                           torch.from_numpy(t)).numpy().reshape(-1)
+    return tuple(np.where(deg, 0, a) for a in (x0, y0, bw, bh))
+
+
+def warp_areas(bw: np.ndarray, bh: np.ndarray) -> np.ndarray:
+    """The bbox areas of the flat entries laid out as K1's warps:
+    [ceil(n / 32), 32], 0 past the last entry.  A warp's balanced walk
+    takes ceil(its row's sum / 32) steps; the one-thread walk it replaced
+    took its row's max."""
+    area = np.zeros(-(-bw.size // WARP) * WARP, np.int64)
+    area[:bw.size] = bw * bh
+    return area.reshape(-1, WARP)
 
 
 def bbox_position(q: np.ndarray, width: np.ndarray
