@@ -94,7 +94,7 @@ default:
 
 @pytest.fixture(scope="module")
 def trained(dataset, tmp_path_factory):
-    """Both CLIs, 2 steps each on the CPU; BFMNet with a profiler window."""
+    """Both CLIs, 2 steps each on the CPU, each with a profiler window."""
     tmp = tmp_path_factory.mktemp("run")
     cfg_b = _yaml(tmp, dataset, "seq.txt")
     cfg_p = _yaml(tmp, dataset, "panel.txt")
@@ -104,7 +104,8 @@ def trained(dataset, tmp_path_factory):
                          "1", "--profile_start", "1"])
     pixrefer_trainer.main(["--config_path", cfg_p, "--steps", "2",
                            "--device", "cpu", "--ckpt_dir", str(tmp / "cp"),
-                           "--log_dir", str(tmp / "lp")])
+                           "--log_dir", str(tmp / "lp"), "--profile_steps",
+                           "1", "--profile_start", "2"])
     return tmp, cfg_p
 
 
@@ -134,6 +135,14 @@ def test_pixrefer_cli_writes_metrics_checkpoints_and_summary(trained):
     strip = np.asarray(Image.open(tmp / "lp" / "images" /
                                   "pixrefer_2.jpg"))
     assert strip.shape == (PR_S, 3 * PR_S, 3)
+
+
+def test_pixrefer_cli_trace_names_the_step_halves(trained):
+    """The trace of ``--profile_steps`` holds the trainer's spans."""
+    tmp, _ = trained
+    with open(tmp / "lp" / "profile" / "trace_2.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"vp.train.d_half", "vp.train.g_half"} <= names
 
 
 def test_from_checkpoints_serves_what_was_trained(trained):

@@ -33,6 +33,7 @@ import torch
 from voicepuppet_torch.pipeline.align import head_sway_angles
 from voicepuppet_torch.pipeline.synthesize import (Identity, Synthesizer,
                                                    splice_coeff_sequence)
+from voicepuppet_torch.utils import tracing
 
 
 class StreamingCoeffPredictor:
@@ -40,7 +41,7 @@ class StreamingCoeffPredictor:
 
     Keeps the GRU hidden state across chunks and the pcm lookback and
     lookahead the conv trunk needs.  Blocks are [emit, 64] tensors on the
-    synthesizer's device."""
+    synthesizer's device.  ``request``: the stream's id in its spans."""
 
     def __init__(self, synth: Synthesizer, chunk: int = 16,
                  ctx_left: int = 24, ctx_right: int = 12,
@@ -63,6 +64,7 @@ class StreamingCoeffPredictor:
         self._rng = np.random.RandomState(rng_seed)
         self._state = None
         self._done = False
+        self.request = tracing.new_request()
 
     @property
     def frames_buffered(self) -> int:
@@ -136,13 +138,15 @@ class StreamingCoeffPredictor:
         ears = self._rng.rand(1, self.chunk, 1).astype(np.float32) / 100.0
         synth = self.synth
         dev = synth.device
-        mel = synth.frontend(torch.as_tensor(window[None], device=dev))
-        enc = synth.bfmnet.encode(mel)
-        mid = enc[:, self.ctx_left:self.ctx_left + self.chunk]
-        exp, state = synth.bfmnet.decode(
-            mid, torch.as_tensor(ears, device=dev),
-            torch.full((1,), self.chunk, dtype=torch.int64, device=dev),
-            rnn_state=self._state, return_rnn_state=True)
+        with tracing.span("vp.stream.coeff", request=self.request,
+                          size=emit, device=dev):
+            mel = synth.frontend(torch.as_tensor(window[None], device=dev))
+            enc = synth.bfmnet.encode(mel)
+            mid = enc[:, self.ctx_left:self.ctx_left + self.chunk]
+            exp, state = synth.bfmnet.decode(
+                mid, torch.as_tensor(ears, device=dev),
+                torch.full((1,), self.chunk, dtype=torch.int64, device=dev),
+                rnn_state=self._state, return_rnn_state=True)
         # carry the recurrence only after a full chunk: the state must be
         # the one after the frames actually emitted
         self._state = state if emit == self.chunk else None
@@ -217,15 +221,20 @@ class StreamingSynthesizer:
     def _pipeline(self, blocks) -> List[np.ndarray]:
         outs: List[np.ndarray] = []
         pending = None
+        stream = self.coeffs.request
         for block in blocks:
-            cur = self._dispatch(block)
+            with tracing.span("vp.stream.block", request=stream,
+                              size=int(block.shape[0]),
+                              device=self.synth.device):
+                cur = self._dispatch(block)
             if cur is None:
                 continue
             if pending is not None:
-                outs.append(self.synth.finish_fetch(*pending))
+                outs.append(self.synth.finish_fetch(*pending,
+                                                    request=stream))
             pending = cur
         if pending is not None:
-            outs.append(self.synth.finish_fetch(*pending))
+            outs.append(self.synth.finish_fetch(*pending, request=stream))
         return outs
 
     def feed(self, pcm: np.ndarray) -> List[np.ndarray]:

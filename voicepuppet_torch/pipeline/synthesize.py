@@ -77,6 +77,7 @@ from voicepuppet_torch.parallel.mesh import (gather_to_main, rank_rows,
 from voicepuppet_torch.pipeline.align import head_sway_angles
 from voicepuppet_torch.tools import tf_checkpoint as tfc
 from voicepuppet_torch.tools.tf_bundle import read_checkpoint
+from voicepuppet_torch.utils import tracing
 from voicepuppet_torch.weights import check_state_dict
 
 TRANSFER_FORMATS = ("yuv420", "rgb8")
@@ -362,9 +363,10 @@ class Synthesizer:
         ear[:, :t] = (np.random.RandomState(rng_seed)
                       .rand(1, t, 1).astype(np.float32) / 100.0)
         dev = self.device
-        mel = self.frontend(torch.as_tensor(pcm, device=dev))
-        exp = self.bfmnet(torch.as_tensor(ear, device=dev), mel,
-                          torch.tensor([t], device=dev), mask_time=True)
+        with tracing.span("vp.coeff", size=t, device=dev):
+            mel = self.frontend(torch.as_tensor(pcm, device=dev))
+            exp = self.bfmnet(torch.as_tensor(ear, device=dev), mel,
+                              torch.tensor([t], device=dev), mask_time=True)
         return exp[:, :t]
 
     # ---- program 2: coeffs -> frames (chunked) ----
@@ -495,9 +497,13 @@ class Synthesizer:
         frames = np.zeros((t, self.img_size, self.img_size, 3), np.uint8)
         c = self.chunk
         multiple = self.mesh.world if self._partition == "frames" else 1
+        # the drain's spans belong to the call's (they run in the pool)
+        root = tracing.current()
+        call = root.request if root is not None else tracing.new_request()
 
         def drain(start, n, fetch):
-            frames[start:start + n] = self.finish_fetch(fetch, n)
+            frames[start:start + n] = self.finish_fetch(
+                fetch, n, request=call, parent=root)
 
         pool = self._drain_executor()
         futures = []
@@ -505,22 +511,29 @@ class Synthesizer:
             n = min(c, t - start)
             cc = (tail_bucket(n, c, multiple)
                   if n < c and self._tail_bucket else c)
-            coeff_c = torch.zeros((cc, 257), device=dev)
-            coeff_c[:n] = coeff_seq[start:start + n]
-            ang_c = torch.zeros((cc, 3), device=dev)
-            ang_c[:n] = angles[start:start + n]
-            idx_c = torch.zeros((cc,), dtype=torch.int64, device=dev)
-            idx_c[:n] = bg_idx_all[start:start + n]
-            out = self.frame_program(geometry, coeff_c, ang_c, bg_pool,
-                                     idx_c, face3d_ref, fg_ref)
-            if out is None:
+            with tracing.span("vp.render.chunk", request=call, size=n,
+                              device=dev):
+                coeff_c = torch.zeros((cc, 257), device=dev)
+                coeff_c[:n] = coeff_seq[start:start + n]
+                ang_c = torch.zeros((cc, 3), device=dev)
+                ang_c[:n] = angles[start:start + n]
+                idx_c = torch.zeros((cc,), dtype=torch.int64, device=dev)
+                idx_c[:n] = bg_idx_all[start:start + n]
+                out = self.frame_program(geometry, coeff_c, ang_c, bg_pool,
+                                         idx_c, face3d_ref, fg_ref)
+                fetch = None if out is None else self.start_fetch(out)
+            tracing.count("vp.frames.served", n)
+            tracing.count("vp.frames.padded", cc - n)
+            if fetch is None:
                 continue
-            fetch = self.start_fetch(out)
-            while len(futures) >= DRAIN_DEPTH:
-                futures.pop(0).result()
+            if len(futures) >= DRAIN_DEPTH:
+                with tracing.span("vp.render.drain_wait", request=call):
+                    while len(futures) >= DRAIN_DEPTH:
+                        futures.pop(0).result()
             futures.append(pool.submit(drain, start, n, fetch))
-        for f in futures:
-            f.result()
+        with tracing.span("vp.render.drain_wait", request=call):
+            for f in futures:
+                f.result()
         return frames if self.is_main else None
 
     def _drain_executor(self) -> ThreadPoolExecutor:
@@ -568,12 +581,19 @@ class Synthesizer:
         done.record(self._side)
         return host, done
 
-    def finish_fetch(self, fetch, n: int) -> np.ndarray:
-        """Wait for a :meth:`start_fetch` copy -> [n,S,S,3] uint8 RGB."""
+    def finish_fetch(self, fetch, n: int, request: Optional[int] = None,
+                     parent=None) -> np.ndarray:
+        """Wait for a :meth:`start_fetch` copy -> [n,S,S,3] uint8 RGB.
+        ``request`` / ``parent``: the call or stream the drained frames
+        belong to, for the drain's spans."""
         host, done = fetch
         if done is not None:
-            done.synchronize()
-        return self.fetch_frames(host.numpy(), n)
+            with tracing.span("vp.drain.fetch_wait", request=request,
+                              parent=parent):
+                done.synchronize()
+        with tracing.span("vp.drain.unpack", request=request, size=n,
+                          parent=parent):
+            return self.fetch_frames(host.numpy(), n)
 
     def fetch_frames(self, packed: np.ndarray, n: int) -> np.ndarray:
         """A whole host chunk (packed YUV 4:2:0 or rgb8), sliced on the host
@@ -653,13 +673,14 @@ class Synthesizer:
             audio_path_for_mux = audio_path_for_mux or audio_path_or_pcm
         else:
             pcm = np.asarray(audio_path_or_pcm, np.float32)
-        exp = self.predict_expressions(pcm)
-        coeff_seq = splice_coeff_sequence(identity.bfmcoeff, exp)
-        if backgrounds is None:
-            backgrounds = constant_background(np.zeros((s, s, 3),
-                                                        np.float32))
-        frames = self.render_frames(coeff_seq, identity, face3d_ref, fg_ref,
-                                    backgrounds)
+        with tracing.span("vp.synthesize", request=tracing.new_request()):
+            exp = self.predict_expressions(pcm)
+            coeff_seq = splice_coeff_sequence(identity.bfmcoeff, exp)
+            if backgrounds is None:
+                backgrounds = constant_background(np.zeros((s, s, 3),
+                                                            np.float32))
+            frames = self.render_frames(coeff_seq, identity, face3d_ref,
+                                        fg_ref, backgrounds)
         if out_dir is not None:
             write_frames_and_mux(frames, out_dir, audio_path_for_mux,
                                  self.cfg.frame_rate)

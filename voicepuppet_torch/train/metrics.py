@@ -17,6 +17,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from voicepuppet_torch.utils import tracing
+
 
 def _number(v) -> float:
     if isinstance(v, torch.Tensor):
@@ -122,8 +124,10 @@ class MetricsLogger:
 
 
 class ProfilerHook:
-    """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity) of
-    the steps [start, start + count), written as a Chrome trace
+    """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity, in
+    every thread: ``utils.tracing.profiler``, so the data workers and the
+    trainers' ``vp.train.*`` spans are in it) of the steps
+    [start, start + count), written as a Chrome trace
     ``<log_dir>/trace_<start>.json``.  ``step(step, k)`` is called before
     each dispatch with the global step and the number of global steps the
     dispatch covers, ``[step, step + k)``: the trace opens at the first
@@ -147,11 +151,7 @@ class ProfilerHook:
             self.close()
         elif step + k > self.start and self._prof is None \
                 and self.path is None:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=acts)
+            self._prof = tracing.profiler()
             self._prof.__enter__()
 
     def close(self):

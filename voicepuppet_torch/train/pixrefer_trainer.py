@@ -53,6 +53,7 @@ from voicepuppet_torch.parallel.mesh import (DataGroup, all_reduce_grads_,
 from voicepuppet_torch.train.bfmnet_trainer import batch_to_device
 from voicepuppet_torch.train.optim import gan_optimizer
 from voicepuppet_torch.train.state import GANTrainState
+from voicepuppet_torch.utils import tracing
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -69,9 +70,7 @@ def _mark(marks: Optional[List]):
     """Append to ``marks``, when given, a CUDA event recorded on the
     current stream."""
     if marks is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(ev)
+        marks.append(tracing.cuda_event())
 
 
 class PixReferTrainer:
@@ -152,32 +151,37 @@ class PixReferTrainer:
         inputs, fg_inputs, targets, masks = batch_to_device(batch,
                                                             self.device)
         _mark(marks)
-        inputs_p = px.preprocess(inputs)
-        fg_p = px.preprocess(fg_inputs)
-        targets_p = px.preprocess(targets)
-        gen, disc = state.gen, state.disc
-        outputs, alphas, outputs_fg = gen(inputs_p, fg_p, targets_p)
+        with tracing.span("vp.train.d_half", request=state.step,
+                          device=self.device):
+            inputs_p = px.preprocess(inputs)
+            fg_p = px.preprocess(fg_inputs)
+            targets_p = px.preprocess(targets)
+            gen, disc = state.gen, state.disc
+            outputs, alphas, outputs_fg = gen(inputs_p, fg_p, targets_p)
 
-        fake = outputs_fg.detach()
-        predict_real = (disc(inputs_p[..., 3:], fg_p[..., 3:])
-                        + disc(inputs_p[..., :3], fg_p[..., :3])) / 2.0
-        d_loss = px.discriminator_loss(predict_real,
-                                       disc(inputs_p[..., 3:], fake))
-        state.d_optimizer.zero_grad(set_to_none=True)
-        d_loss.backward(inputs=list(disc.parameters()))
-        all_reduce_grads_(disc.parameters(), group)
-        state.d_optimizer.step()
+            fake = outputs_fg.detach()
+            predict_real = (disc(inputs_p[..., 3:], fg_p[..., 3:])
+                            + disc(inputs_p[..., :3], fg_p[..., :3])) / 2.0
+            d_loss = px.discriminator_loss(predict_real,
+                                           disc(inputs_p[..., 3:], fake))
+            state.d_optimizer.zero_grad(set_to_none=True)
+            d_loss.backward(inputs=list(disc.parameters()))
+            all_reduce_grads_(disc.parameters(), group)
+            state.d_optimizer.step()
         _mark(marks)
 
         # G through the updated D (reference ordering)
-        perc = vgg_mod.perceptual_loss(self.vgg, fg_p[..., 3:], outputs_fg)
-        g_loss, gan_t, l1_t = px.generator_loss(
-            disc(inputs_p[..., 3:], outputs_fg), targets_p, outputs, alphas,
-            masks, perc, cfg.gan_weight, cfg.l1_weight)
-        state.g_optimizer.zero_grad(set_to_none=True)
-        g_loss.backward(inputs=list(gen.parameters()))
-        all_reduce_grads_(gen.parameters(), group)
-        state.g_optimizer.step()
+        with tracing.span("vp.train.g_half", request=state.step,
+                          device=self.device):
+            perc = vgg_mod.perceptual_loss(self.vgg, fg_p[..., 3:],
+                                           outputs_fg)
+            g_loss, gan_t, l1_t = px.generator_loss(
+                disc(inputs_p[..., 3:], outputs_fg), targets_p, outputs,
+                alphas, masks, perc, cfg.gan_weight, cfg.l1_weight)
+            state.g_optimizer.zero_grad(set_to_none=True)
+            g_loss.backward(inputs=list(gen.parameters()))
+            all_reduce_grads_(gen.parameters(), group)
+            state.g_optimizer.step()
         _mark(marks)
         state.step += self.step_stride
         metrics = {"discrim_loss": d_loss, "gen_loss": g_loss,
