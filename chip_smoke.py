@@ -2981,7 +2981,7 @@ def main():
                                                profile_raster3,
                                                profile_raster_grouped,
                                                profile_raster_regacc)
-    from voicepuppet_torch.pipeline import streaming
+    from voicepuppet_torch.pipeline import drain_native, streaming
     from voicepuppet_torch.pipeline import synthesize as syn
     from voicepuppet_torch.pipeline.align import head_sway_angles
 
@@ -3142,13 +3142,21 @@ def main():
         breakdown = {k: round(cuda_ms(f, 5), 4) for k, f in stages.items()}
     log(f"breakdown ms per chunk of {CHUNK}: {json.dumps(breakdown)}")
     packed = syn._pack_yuv420(out).cpu().numpy()
-    unpack_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        syn._unpack_yuv420(packed, s)
-        unpack_s.append(time.perf_counter() - t0)
-    log(f"host: numpy YUV 4:2:0 unpack {min(unpack_s) * 1e3:.1f} ms per "
-        f"chunk of {CHUNK} (best of 3)")
+    unpack_ms, unpacked = {}, {}
+    for name, unpack in (("numpy", syn._unpack_yuv420),
+                         ("native", drain_native.unpack_yuv420)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            unpacked[name] = unpack(packed, s)
+            best = min(best, time.perf_counter() - t0)
+        unpack_ms[name] = best * 1e3
+    # the host picks the native routine's SSSE3 body or its plain loop
+    # from its own CPU: the served bytes are checked here, on that host
+    np.testing.assert_array_equal(unpacked["native"], unpacked["numpy"])
+    log(f"host: YUV 4:2:0 unpack {unpack_ms['numpy']:.1f} ms numpy (the "
+        f"oracle), {unpack_ms['native']:.2f} ms native (the drain's, "
+        f"byte-equal) per chunk of {CHUNK} (best of 3)")
     wall_ms = sorted(times)[len(times) // 2] * 1e3
     device_ms = (breakdown["coeff_program_whole_clip"]
                  + n_chunks * breakdown["frame_program_total"])

@@ -39,6 +39,7 @@ from voicepuppet_torch.models import layers as tlayers
 from voicepuppet_torch.models import pixrefer as tpx
 from voicepuppet_torch.models.bfmnet import BFMNet as TBFMNet
 from voicepuppet_torch.pipeline import align as talign
+from voicepuppet_torch.pipeline import drain_native
 from voicepuppet_torch.pipeline import synthesize as tsyn
 
 from _torch_port_cases import jax_cfg, jax_trees, port_cfg
@@ -395,6 +396,9 @@ def test_pack_yuv420_bytes_equal_jax():
     assert got.dtype == np.uint8 and got.shape == (3, 64 * 64 * 3 // 2)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tsyn._unpack_yuv420(got, 64),
+                                  jsyn._unpack_yuv420(want, 64))
+    # the drain's served unpack
+    np.testing.assert_array_equal(drain_native.unpack_yuv420(got, 64),
                                   jsyn._unpack_yuv420(want, 64))
 
 

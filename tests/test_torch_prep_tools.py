@@ -46,6 +46,7 @@ from voicepuppet_torch.tools import convert_assets as tca
 from voicepuppet_torch.tools import makelist as tml
 from voicepuppet_torch.tools import models_torch as tmt
 from voicepuppet_torch.tools import prepare_dataset as tpd
+from voicepuppet_torch.utils import native
 
 from _torch_port_cases import jax_cfg, port_cfg
 
@@ -215,8 +216,8 @@ def test_raster_native_matches_jax_bindings(mesh):
 def test_raster_native_builds_its_own_copy(mesh):
     """The library is the port's source built into build/, not
     native/libvp_raster.so; bad triangles fail before the C code."""
-    path = trn.build_library()
-    assert os.path.dirname(path) == trn.BUILD_DIR
+    path = native.build_library(trn._SRC, "vp_raster_host")
+    assert os.path.dirname(path) == native.BUILD_DIR
     assert "libvp_raster_host_" in os.path.basename(path)
     assert trn._SRC.endswith(os.path.join("voicepuppet_torch", "csrc",
                                           "vp_raster.cpp"))

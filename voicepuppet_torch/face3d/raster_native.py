@@ -7,48 +7,27 @@ The raster API on the host CPU, a second oracle next to the plain spec
 mesh_core_cython extension (utils/cython/mesh_core_cython.pyx:40-99).
 No serving or training path calls it.  The library is built with g++ and
 ``native/build.py``'s flags into ``build/`` (named by the source's hash)
-at the first call, never at import.
+at the first call, never at import (``utils/native.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from typing import Tuple
 
 import numpy as np
 
+from voicepuppet_torch.utils import native
+
 DEPTH_INIT = -99999.0
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "vp_raster.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
 _lock = threading.Lock()
-
-
-def build_library(src: str = _SRC, build_dir: str = BUILD_DIR) -> str:
-    """Compile ``src`` with g++ into ``build_dir`` unless a library of the
-    same source and flags is there; returns its path."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode()
-                                ).hexdigest()[:16]
-    os.makedirs(build_dir, exist_ok=True)
-    lib = os.path.join(build_dir, f"libvp_raster_host_{digest}.so")
-    if not os.path.exists(lib):
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run(["g++", *GXX_FLAGS, src, "-o", tmp],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-    return lib
 
 
 def _load():
@@ -56,7 +35,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(build_library())
+        lib = ctypes.CDLL(native.build_library(_SRC, "vp_raster_host"))
         f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

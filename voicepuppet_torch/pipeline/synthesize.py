@@ -15,8 +15,9 @@ generator's batch-stat BN and so shape the tail frames (``_tail_bucket``
 False pads it to the whole chunk, an A/B switch of
 ``experiments/profile_tail_bucket.py``).  The drain copies
 each packed chunk to pinned host memory on a side stream; a persistent
-pool of ``drain_workers`` threads waits for each copy and unpacks it with
-numpy while the card computes the next chunks (pipeline depth 4, each task
+pool of ``drain_workers`` threads waits for each copy and unpacks it
+(``pipeline/drain_native.py``: one compiled pass with the GIL released)
+while the card computes the next chunks (pipeline depth 4, each task
 writing its own frame slice).
 
 Weights come from fresh random draws (``SynthesisAssets.demo``), from the
@@ -75,6 +76,7 @@ from voicepuppet_torch.parallel import spatial
 from voicepuppet_torch.parallel.mesh import (gather_to_main, rank_rows,
                                              replicate)
 from voicepuppet_torch.pipeline.align import head_sway_angles
+from voicepuppet_torch.pipeline.drain_native import unpack_yuv420
 from voicepuppet_torch.tools import tf_checkpoint as tfc
 from voicepuppet_torch.tools.tf_bundle import read_checkpoint
 from voicepuppet_torch.utils import tracing
@@ -178,7 +180,8 @@ def join_packed_rows(parts, transfer_format: str) -> torch.Tensor:
 def _unpack_yuv420(packed: np.ndarray, s: int) -> np.ndarray:
     """Host inverse of :func:`_pack_yuv420`: [N, S*S*3//2] uint8 ->
     [N, S, S, 3] uint8 RGB (nearest chroma upsample; the chroma terms run
-    at quarter resolution in int16 1/64 fixed point)."""
+    at quarter resolution in int16 1/64 fixed point).  The tests' oracle
+    for the native unpack the drain runs (``pipeline/drain_native.py``)."""
     n = packed.shape[0]
     ss = s * s
     y = packed[:, :ss].reshape(n, s, s).astype(np.int16)
@@ -597,9 +600,12 @@ class Synthesizer:
 
     def fetch_frames(self, packed: np.ndarray, n: int) -> np.ndarray:
         """A whole host chunk (packed YUV 4:2:0 or rgb8), sliced on the host
-        -> [n,S,S,3] uint8 RGB."""
+        -> [n,S,S,3] uint8 RGB (YUV 4:2:0 by the native unpack, the bytes
+        of :func:`_unpack_yuv420`)."""
         if self.transfer_format == "yuv420":
-            return _unpack_yuv420(packed[:n], self.img_size)
+            frames = unpack_yuv420(packed[:n], self.img_size)
+            tracing.count("vp.drain.native_frames", frames.shape[0])
+            return frames
         return packed[:n]
 
     @torch.inference_mode()
