@@ -156,6 +156,9 @@ class MeshConfig:
 class Config:
     model_dir: str = "./allmodels"
     frame_rate: int = 25
+    # the generator the Synthesizer serves: "pixrefer" (infer_bfmvid.py)
+    # or "pixflow" (infer_bfm_pixflow.py)
+    generator: str = "pixrefer"
     mel: MelConfig = field(default_factory=MelConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
@@ -238,7 +241,8 @@ def _distribute_training(out: Dict[str, Any], training: Dict[str, Any]):
 def _flatten_reference_yaml(raw: Dict[str, Any]) -> Dict[str, Any]:
     """Map the reference params.yml schema onto the Config tree."""
     out: Dict[str, Any] = {k: raw[k] for k in ("model_dir", "frame_rate",
-                                               "mel", "training")
+                                               "generator", "mel",
+                                               "training")
                            if k in raw}
     dataset: Dict[str, Any] = {k: raw[k] for k in (
         "train_dataset_path", "eval_dataset_path", "root_path",

@@ -18,6 +18,15 @@ BatchNorm is PixRefer's batch-moment ``StatelessBatchNorm``, at inference
 too.  ``ResBlock`` drops out at ``drop_rate`` 0.5 in training, drawing
 from the caller's ``torch.Generator``.
 
+Serving (``pipeline/synthesize.py``) runs G as the published driver
+does, one frame at a time, over a batch: ``PixFlowNet.per_frame_moments``
+gives each frame its own BN moments, so a frame does not depend on the
+others of its batch.  The encoding of the reference foreground, the
+reference render's ``diffnet`` features and ``pre_resnet`` are then the
+same for every frame of a call: ``PixFlowGenerator.call_state`` computes
+them once (at batch 1) and ``frame_forward`` the rest for a batch of
+current renders; together they are ``forward`` exactly.
+
 Modules keep the flax scope names; images enter and leave NHWC, the convs
 run NCHW in the compute dtype ``PixFlowGenerator.dtype`` (float32 by
 default; the trainer's ``train_dtype``) with float32 parameters, while BN
@@ -35,6 +44,7 @@ from torch import nn
 from voicepuppet_torch.models.layers import (SameConv2d,
                                              SameConvTranspose2d, dropout)
 from voicepuppet_torch.models.pixrefer import (GenConv, GenDeconv,
+                                               PixReferNet,
                                                StatelessBatchNorm, lrelu)
 
 
@@ -109,6 +119,10 @@ class PixFlowGenerator(nn.Module):
         diff_feat = self.diffnet(x[:, 3:]) - self.diffnet(x[:, :3])
         res = lambda name, v: getattr(self, name)(v, train, generator)
         h = res("pre_resnet_2", res("pre_resnet_1", encode_feat))
+        return self._tail(h, diff_feat, res)
+
+    def _tail(self, h, diff_feat, res):
+        """diff_resnet, post_resnet on their sum, the decoder, tanh."""
         d = res("diff_resnet_2", res("diff_resnet_1", diff_feat))
         h = res("post_resnet_2", res("post_resnet_1", h + d))
         for i in range(3):
@@ -116,6 +130,25 @@ class PixFlowGenerator(nn.Module):
                 getattr(self, f"decoder_{i}")(F.relu(h)))
         h = self.final7(F.relu(h))
         return torch.tanh(h.float()).permute(0, 2, 3, 1)
+
+    def call_state(self, render_ref, fg_ref):
+        """The part of an inference forward that one call's frames share
+        under per-frame moments: render_ref, fg_ref [1,S,S,3] NHWC in
+        [-1,1] -> (``pre_resnet``'s output, the reference render's
+        ``diffnet`` features), NCHW in the compute dtype."""
+        fg = fg_ref.permute(0, 3, 1, 2).to(self.dtype)
+        ref = render_ref.permute(0, 3, 1, 2).to(self.dtype)
+        h = self.pre_resnet_2(self.pre_resnet_1(self.encoder_net(fg)))
+        return h, self.diffnet(ref)
+
+    def frame_forward(self, state, render_cur):
+        """The rest of an inference forward: ``call_state``'s output and
+        the current renders [B,S,S,3] NHWC in [-1,1] -> the raw tanh
+        output [B,S,S,4] float32."""
+        h, ref_feat = state
+        x = render_cur.permute(0, 3, 1, 2).to(self.dtype)
+        res = lambda name, v: getattr(self, name)(v)
+        return self._tail(h, self.diffnet(x) - ref_feat, res)
 
 
 class PixFlowNet(nn.Module):
@@ -128,9 +161,24 @@ class PixFlowNet(nn.Module):
 
     def forward(self, inputs, fg_inputs, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        out = self.generator(inputs, fg_inputs, train, generator)
-        alpha = ((out[..., 3:] + 1.0) / 2.0).expand(-1, -1, -1, 3)
-        return out[..., :3] * alpha + alpha - 1.0, alpha
+        return composite_black(self.generator(inputs, fg_inputs, train,
+                                              generator))
+
+    set_conv_dtype = PixReferNet.set_conv_dtype
+
+    def per_frame_moments(self) -> "PixFlowNet":
+        """Every BN takes each frame's own moments (over H and W): a
+        batch then serves what batches of one frame serve."""
+        for m in self.modules():
+            if isinstance(m, StatelessBatchNorm):
+                m.moment_dims = (2, 3)
+        return self
+
+
+def composite_black(out):
+    """G's raw [B,S,S,4] -> (``rgb*α + α - 1`` [B,S,S,3], α [B,S,S,3])."""
+    alpha = ((out[..., 3:] + 1.0) / 2.0).expand(-1, -1, -1, 3)
+    return out[..., :3] * alpha + alpha - 1.0, alpha
 
 
 def pixflow_discriminator_loss(predict_real, predict_fake,

@@ -45,7 +45,12 @@ class StatelessBatchNorm(SyncBN):
     """Batch-moment normalization with learned scale/offset, eps 1e-5,
     moments in float32 (ref: pixrefer.py:58-86).  Over a group of several
     ranks (:func:`layers.sync_bn`) ``mean`` and ``mean²`` are averaged
-    across them, as the JAX module pmeans them (pixrefer.py:81-83)."""
+    across them, as the JAX module pmeans them (pixrefer.py:81-83).
+    ``moment_dims``: the NCHW axes the moments are taken over; (2, 3)
+    gives each frame its own moments, as a batch of one would
+    (``PixFlowNet.per_frame_moments``)."""
+
+    moment_dims = (0, 2, 3)
 
     def __init__(self, ch: int, epsilon: float = 1e-5):
         super().__init__()
@@ -55,8 +60,8 @@ class StatelessBatchNorm(SyncBN):
 
     def forward(self, x):
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
-        mean2 = torch.square(xf).mean(dim=(0, 2, 3), keepdim=True)
+        mean = xf.mean(dim=self.moment_dims, keepdim=True)
+        mean2 = torch.square(xf).mean(dim=self.moment_dims, keepdim=True)
         if spans_ranks(self.group):
             both = AllReduceSum.apply(torch.cat([mean, mean2]), self.group)
             both = both / dist.get_world_size(self.group)

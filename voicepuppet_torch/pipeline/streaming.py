@@ -162,12 +162,17 @@ class StreamingSynthesizer:
     Each block runs the batch Synthesizer's frame program (3DMM decode ->
     raster -> PixRefer G -> composite -> YUV pack), so per-block work is
     the batch path's.  Block k+1 is dispatched before block k is drained,
-    so the card computes one while the host unpacks the other."""
+    so the card computes one while the host unpacks the other.  A PixFlow
+    Synthesizer is refused."""
 
     def __init__(self, synth: Synthesizer, identity: Identity,
                  face3d_ref: np.ndarray, fg_ref: np.ndarray,
                  background: Optional[np.ndarray] = None,
                  ctx_left: int = 24, ctx_right: int = 12):
+        if synth.generator != "pixrefer":
+            raise NotImplementedError(
+                f"streaming a {synth.generator!r} Synthesizer is not "
+                f"supported: only PixRefer is served live")
         self.synth = synth
         self.identity = identity
         s = synth.img_size

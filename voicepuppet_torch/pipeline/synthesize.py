@@ -29,6 +29,20 @@ dumps (``from_npz``), read with no TensorFlow by ``tools/``.
 equals the flat kernel's; the streaming driver (``pipeline/streaming.py``)
 reuses :meth:`Synthesizer.frame_program_for` and the fetch helpers.
 
+``cfg.generator`` selects the generator served.  ``"pixrefer"`` is the
+path above.  ``"pixflow"`` serves PixFlowNet as ``infer_bfm_pixflow.py``
+does, through the same entry points, chunks, tail buckets and drain:
+the coefficients decoded with no head angles and rasterized straight
+into the ``pixflow.img_size``² canvas (the driver's vertex mapping,
+``pipeline/infer_drivers.render_coeff_video_frames``), G fed the panel's
+reference render beside each frame's render and the panel's foreground,
+its convs in ``gan_dtype`` and each frame's BN moments its own (the
+driver runs G one frame at a time), composited on black (backgrounds
+are not used).  The part of G that every frame of a call shares under
+per-frame moments (``PixFlowGenerator.call_state``) runs once a
+``render_frames`` call.  PixFlow is served by one process: the
+streaming driver and a mesh of several ranks refuse it.
+
 Sharded serving (``mesh=``, a ``parallel.mesh.DataGroup`` of several
 ranks, each a process with its own device): every rank builds the same
 Synthesizer and calls ``render_frames`` / ``synthesize`` (or feeds a
@@ -71,6 +85,7 @@ from voicepuppet_torch.face3d import morph
 from voicepuppet_torch.models import pixrefer as px
 from voicepuppet_torch.models.bfmnet import BFMNet, init_bfmnet_
 from voicepuppet_torch.models.layers import sync_bn
+from voicepuppet_torch.models.pixflow import PixFlowNet, composite_black
 from voicepuppet_torch.ops import render_colors_auto
 from voicepuppet_torch.parallel import spatial
 from voicepuppet_torch.parallel.mesh import (gather_to_main, rank_rows,
@@ -84,6 +99,7 @@ from voicepuppet_torch.weights import check_state_dict
 
 TRANSFER_FORMATS = ("yuv420", "rgb8")
 MESH_PARTITIONS = ("frames", "spatial")
+GENERATORS = ("pixrefer", "pixflow")
 DRAIN_DEPTH = 4         # chunks in flight between dispatch and drain
 
 
@@ -236,6 +252,13 @@ def frames_chunk(chunk: int, world: int) -> int:
     return c - c % world
 
 
+def generator_module(cfg: Config) -> torch.nn.Module:
+    """The served generator's module for ``cfg.generator``, float32."""
+    if cfg.generator == "pixflow":
+        return PixFlowNet(cfg.pixflow)
+    return px.PixReferNet(cfg.pixrefer)
+
+
 def tail_bucket(n: int, chunk: int, multiple: int = 1) -> int:
     """Frames rendered for a last chunk of ``n`` < ``chunk`` frames: the
     smallest power of two >= n, floor 8, then at least ``multiple`` and
@@ -252,9 +275,10 @@ def tail_bucket(n: int, chunk: int, multiple: int = 1) -> int:
 class Synthesizer:
     """Weights + programs of the synthesis pipeline on one device.
 
-    ``bfmnet_state`` / ``g_state``: state_dicts of ``BFMNet`` and
-    ``PixReferNet`` (``weights.state_dict_from_flax`` makes them from the
-    JAX trees; ``SynthesisAssets.init_trees`` makes fresh ones).
+    ``bfmnet_state`` / ``g_state``: state_dicts of ``BFMNet`` and of the
+    generator ``cfg.generator`` names, ``PixReferNet`` or ``PixFlowNet``
+    (``weights.state_dict_from_flax`` makes them from the JAX trees;
+    ``SynthesisAssets.init_trees`` makes fresh ones).
     ``gan_dtype``: the generator's conv dtype — bfloat16 serves on the
     card; pass ``torch.float32`` for CPU parity runs.
     ``bfmnet_dtype``: the BFMNet conv trunk's compute dtype (its GRU and
@@ -264,7 +288,9 @@ class Synthesizer:
     ``drain_workers``: threads that wait for and unpack drained chunks.
     ``raster_group``: > 0 selects the grouped raster kernel K4 (groups of
     that many consecutive triangles), 0 the flat kernel K1; both give the
-    same frames.
+    same frames.  ``raster_size`` / ``raster_bb``: PixRefer's raster
+    before the resize and paste; PixFlow rasterizes the image's own
+    canvas (``img_size``).
     ``mesh``: a ``parallel.mesh.DataGroup`` (``make_mesh()`` under
     torchrun, or a ``parallel.spawn.run_ranks`` group); the device is then
     the rank's.  Over several ranks the calls are SPMD (module docstring)
@@ -294,6 +320,16 @@ class Synthesizer:
             raise NotImplementedError(
                 f"transfer_format {transfer_format!r}: only "
                 f"{' and '.join(TRANSFER_FORMATS)} are ported")
+        if cfg.generator not in GENERATORS:
+            raise ValueError(f"generator {cfg.generator!r}: one of "
+                             f"{GENERATORS}")
+        if (cfg.generator == "pixflow" and mesh is not None
+                and mesh.world > 1):
+            raise NotImplementedError(
+                f"PixFlow serving on a mesh of {mesh.world} ranks is not "
+                f"supported: serve it in one process (mesh=None or a "
+                f"world-1 mesh)")
+        self.generator = cfg.generator
         self.mesh = mesh
         self.mesh_partition = mesh_partition
         # the partition actually served: None for one process
@@ -315,10 +351,16 @@ class Synthesizer:
         self.bfmnet = BFMNet(cfg.bfmnet, dtype=bfmnet_dtype)
         self.bfmnet.load_state_dict(bfmnet_state)
         self.bfmnet.to(self.device).eval()
-        self.gen = px.PixReferNet(cfg.pixrefer)
+        self.gen = generator_module(cfg)
         self.gen.load_state_dict(g_state)
         self.gen.set_conv_dtype(gan_dtype).to(self.device).eval()
         self.img_size = cfg.pixrefer.img_size
+        if self.generator == "pixflow":
+            self.gen.per_frame_moments()
+            self.img_size = cfg.pixflow.img_size
+            raster_size = self.img_size
+            # the published driver's window (the kernels ignore it)
+            raster_bb = max(6, int(np.ceil(7 * raster_size / 224.0)))
         if self._partition is not None:
             replicate([self.bfmnet, self.gen], mesh)
         if self._partition == "frames":
@@ -397,11 +439,17 @@ class Synthesizer:
         return self._partition is None or self.mesh.is_main
 
     def frame_program(self, geometry, coeff, angles, bg_pool, bg_idx,
-                      face3d_ref, fg_ref) -> Optional[torch.Tensor]:
+                      face3d_ref, fg_ref, call_state=None
+                      ) -> Optional[torch.Tensor]:
         """One chunk: coeff [C,257], angles [C,3], bg_pool [P,S,S,3],
         bg_idx [C], refs [S,S,3] -> packed uint8 frames.  Sharded, every
         rank passes the whole chunk; rank 0 gets the packed chunk and the
-        other ranks None."""
+        other ranks None.  PixFlow: no background, and ``call_state``
+        (:meth:`pixflow_call_state` of the same refs) is computed here
+        when not given."""
+        if self.generator == "pixflow":
+            return self._pixflow_program(coeff, angles, face3d_ref, fg_ref,
+                                         call_state)
         part = self._partition
         group = None if part is None else self.mesh.group
         if part == "frames":
@@ -409,14 +457,16 @@ class Synthesizer:
                                               self.mesh)
         inputs, fg_inputs, background = self._generator_inputs(
             geometry, coeff, angles, bg_pool, bg_idx, face3d_ref, fg_ref)
-        if part == "spatial":
-            rows = spatial.RowSplit(group)
-            raw = spatial.generator_rows(self.gen.generator, inputs,
-                                         fg_inputs[..., :3], group)
-            outputs, _, _ = px.composite(raw, rows.take(background, 1))
-        else:
-            with sync_bn(group, self.gen):
-                outputs, _, _ = self.gen(inputs, fg_inputs, background)
+        with tracing.span("vp.render.gen", size=coeff.shape[0],
+                          device=self.device):
+            if part == "spatial":
+                rows = spatial.RowSplit(group)
+                raw = spatial.generator_rows(self.gen.generator, inputs,
+                                             fg_inputs[..., :3], group)
+                outputs, _, _ = px.composite(raw, rows.take(background, 1))
+            else:
+                with sync_bn(group, self.gen):
+                    outputs, _, _ = self.gen(inputs, fg_inputs, background)
         packed = pack_frames(px.deprocess(outputs), self.transfer_format)
         if part is None:
             return packed
@@ -425,6 +475,36 @@ class Synthesizer:
             return None
         return (torch.cat(parts) if part == "frames"
                 else join_packed_rows(parts, self.transfer_format))
+
+    def pixflow_call_state(self, face3d_ref, fg_ref):
+        """PixFlow G's shared part for the refs [S,S,3] in [0,1] (the
+        panel's render and foreground): ``call_state`` at batch 1."""
+        return self.gen.generator.call_state(
+            px.preprocess(face3d_ref[None]), px.preprocess(fg_ref[None]))
+
+    def _pixflow_program(self, coeff, angles, face3d_ref, fg_ref,
+                         call_state):
+        """PixFlow's chunk: decode, K1 into the img_size² canvas with the
+        published driver's vertex mapping, G's per-frame part, the black
+        composite and the pack."""
+        s = self.img_size
+        if call_state is None:
+            call_state = self.pixflow_call_state(face3d_ref, fg_ref)
+        rec = morph.reconstruct_rotation(coeff, self.fm, angles)
+        shape = rec.face_shape
+        scale = s / 224.0
+        xy = (112.0 - shape[..., :2] * 112.0) * scale
+        verts = torch.cat([xy, shape[..., 2:3] * scale], dim=-1).contiguous()
+        colors = torch.floor(torch.clamp(rec.face_color, 0.0, 255.0))
+        img, _ = render_colors_auto(verts, colors.contiguous(), self.fm.tri,
+                                    h=s, w=s, bb=self.raster_bb,
+                                    group=self.raster_group)
+        with tracing.span("vp.render.gen", size=coeff.shape[0],
+                          device=self.device):
+            raw = self.gen.generator.frame_forward(
+                call_state, px.preprocess(img.float() / 255.0))
+            outputs, _ = composite_black(raw)
+        return pack_frames(px.deprocess(outputs), self.transfer_format)
 
     def _generator_inputs(self, geometry, coeff, angles, bg_pool, bg_idx,
                           face3d_ref, fg_ref):
@@ -469,15 +549,20 @@ class Synthesizer:
                                     device=dev)
         t = coeff_seq.shape[0]
         geometry = self.frame_geometry(identity)
+        pixflow = self.generator == "pixflow"
         if angles is None:
-            angles = head_sway_angles(t)
+            # PixFlow's driver renders with no head motion
+            angles = (np.zeros((t, 3), np.float32) if pixflow
+                      else head_sway_angles(t))
         angles = torch.as_tensor(np.asarray(angles, np.float32), device=dev)
         face3d_ref = torch.as_tensor(np.asarray(face3d_ref, np.float32),
                                      device=dev)
         fg_ref = torch.as_tensor(np.asarray(fg_ref, np.float32), device=dev)
 
         # backgrounds -> a device-resident pool + per-frame index
-        if isinstance(backgrounds, np.ndarray):
+        if pixflow:
+            bg_pool = bg_idx_all = None         # composited on black
+        elif isinstance(backgrounds, np.ndarray):
             pool = backgrounds.reshape((-1,) + backgrounds.shape[-3:])
             bg_idx_all = np.arange(t) % pool.shape[0]
         else:
@@ -493,9 +578,11 @@ class Synthesizer:
                     seen.append(bg)
                     bg_idx_all[i] = len(seen) - 1
             pool = np.stack(seen)
-        bg_pool = torch.as_tensor(np.asarray(pool, np.float32), device=dev)
-        bg_idx_all = torch.as_tensor(bg_idx_all, dtype=torch.int64,
-                                     device=dev)
+        if not pixflow:
+            bg_pool = torch.as_tensor(np.asarray(pool, np.float32),
+                                      device=dev)
+            bg_idx_all = torch.as_tensor(bg_idx_all, dtype=torch.int64,
+                                         device=dev)
 
         frames = np.zeros((t, self.img_size, self.img_size, 3), np.uint8)
         c = self.chunk
@@ -503,6 +590,10 @@ class Synthesizer:
         # the drain's spans belong to the call's (they run in the pool)
         root = tracing.current()
         call = root.request if root is not None else tracing.new_request()
+        call_state = None
+        if pixflow:
+            with tracing.span("vp.render.ref", request=call, device=dev):
+                call_state = self.pixflow_call_state(face3d_ref, fg_ref)
 
         def drain(start, n, fetch):
             frames[start:start + n] = self.finish_fetch(
@@ -520,10 +611,13 @@ class Synthesizer:
                 coeff_c[:n] = coeff_seq[start:start + n]
                 ang_c = torch.zeros((cc, 3), device=dev)
                 ang_c[:n] = angles[start:start + n]
-                idx_c = torch.zeros((cc,), dtype=torch.int64, device=dev)
-                idx_c[:n] = bg_idx_all[start:start + n]
+                idx_c = None
+                if bg_idx_all is not None:
+                    idx_c = torch.zeros((cc,), dtype=torch.int64, device=dev)
+                    idx_c[:n] = bg_idx_all[start:start + n]
                 out = self.frame_program(geometry, coeff_c, ang_c, bg_pool,
-                                         idx_c, face3d_ref, fg_ref)
+                                         idx_c, face3d_ref, fg_ref,
+                                         call_state)
                 fetch = None if out is None else self.start_fetch(out)
             tracing.count("vp.frames.served", n)
             tracing.count("vp.frames.padded", cc - n)
@@ -733,10 +827,11 @@ class SynthesisAssets:
     def init_trees(cfg: Config, seed: int = 0
                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Fresh (bfmnet_state, g_state) at the configured sizes, drawn on
-        the CPU from ``torch.Generator().manual_seed(seed)``."""
+        the CPU from ``torch.Generator().manual_seed(seed)`` (the served
+        generator's convs N(0, 0.02), BN scales 1 + N(0, 0.02))."""
         g = torch.Generator().manual_seed(seed)
         bfm = init_bfmnet_(BFMNet(cfg.bfmnet), g)
-        gen = px.init_pixrefer_(px.PixReferNet(cfg.pixrefer), g)
+        gen = px.init_pixrefer_(generator_module(cfg), g)
         return bfm.state_dict(), gen.state_dict()
 
     @staticmethod
@@ -746,7 +841,12 @@ class SynthesisAssets:
                                       Dict[str, torch.Tensor]]:
         """TF-named arrays -> complete (bfmnet_state, g_state), or a
         ``ValueError`` naming the first three missing, unexpected or
-        mis-shaped variables of either."""
+        mis-shaped variables of either.  PixRefer's G only: no TF name
+        map of PixFlowNet is ported."""
+        if cfg.generator != "pixrefer":
+            raise NotImplementedError(
+                f"TF-named weights of generator {cfg.generator!r}: only "
+                f"PixRefer's are mapped; load the port's checkpoints")
         bfm_own = _module_state(lambda: BFMNet(cfg.bfmnet))
         g_own = _module_state(lambda: px.PixReferNet(cfg.pixrefer))
         return (tfc.strict_state(bfmnet_arrays, bfm_own,
@@ -797,15 +897,15 @@ class SynthesisAssets:
                                            Dict[str, torch.Tensor]]:
         """The latest checkpoints of the two trainers
         (``train/checkpoint.py``) -> (bfmnet_state, g_state): BFMNet's
-        parameters and running BN moments, the generator's parameters.
-        A directory with no checkpoint, or a state that does not match
-        ``cfg``'s modules, raises."""
+        parameters and running BN moments, the generator's parameters
+        (the PixRefer or the PixFlow trainer's, as ``cfg.generator``
+        says).  A directory with no checkpoint, or a state that does not
+        match ``cfg``'s modules, raises."""
         from voicepuppet_torch.train.checkpoint import CheckpointManager
         states = []
         for directory, key, make in (
                 (bfmnet_ckpt_dir, "model", lambda: BFMNet(cfg.bfmnet)),
-                (pixrefer_ckpt_dir, "gen",
-                 lambda: px.PixReferNet(cfg.pixrefer))):
+                (pixrefer_ckpt_dir, "gen", lambda: generator_module(cfg))):
             blob = CheckpointManager(directory).load()
             if blob is None:
                 raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -847,8 +947,7 @@ class SynthesisAssets:
         bfm_state, g_state = SynthesisAssets.init_trees(cfg, seed)
         synth = Synthesizer(cfg, face_model, bfm_state, g_state,
                             **synth_kwargs)
-        return synth, synthetic_identity(face_model, seed,
-                                         cfg.pixrefer.img_size)
+        return synth, synthetic_identity(face_model, seed, synth.img_size)
 
 
 def write_frames_and_mux(frames: np.ndarray, out_dir: str,
