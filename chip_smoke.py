@@ -18,14 +18,29 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         32-frame chunk of the main path (K4 and K5 at each
                         of raster_selftest.GROUP_SIZES, K3), K4 against K1
                         and K5 against K3.
+  2b. bn kernels        build csrc/norm.cu (the generators' batch norm,
+                        ops/batchnorm.py) and run ops/batchnorm_selftest.py:
+                        every BN shape of both served generators in bf16
+                        and float32, each moment mode, channels_last
+                        (moments within 1e-5 of float64 and bit-equal to
+                        moments_plain, outputs byte-equal to eager
+                        normalize of those moments); whole generators no
+                        further from float32 than eager, with eager
+                        reordered and the library's one-call batch norm
+                        beside them; the vp.bn.* counters of a forward and
+                        a training step; kernel, plain, eager and library
+                        ms and the bound on the largest shapes.  Alone:
+                        python3 -c "import torch, chip_smoke as c;
+                        c.phase_bn(torch.device('cuda', 0), c.card_line())".
   3. main path          Config() (ngf 64, 512², BFMNet width 1.0),
                         synthetic_bfm(189, 189), chunk 32, random weights
                         from seed 0: Synthesizer.synthesize on 2.2 s of
                         audio (55 frames: one chunk of 32 and a tail bucket
                         of 32), the generator in bfloat16.  The flat raster
-                        K1 must launch once per chunk.  Then frames/s over
-                        timed repeats, a per-stage time breakdown of one
-                        chunk.
+                        K1 must launch once per chunk, the batch norm
+                        kernels once for every BN call of G.  Then frames/s
+                        over timed repeats, a per-stage time breakdown of
+                        one chunk.
   4. streaming path     the same weights in Synthesizer(raster_group=4):
                         StreamingSynthesizer fed the 55-frame clip in 0.2 s
                         pcm pieces, then flush.  The grouped raster K4 must
@@ -528,7 +543,7 @@ def phase_released_weights(cfg, face_model, trees, panel, pcm, identity,
             got_frames = synth.synthesize(panel, pcm, identity)
             launched = counts()
             if (launched["raster_flat"] != n_chunks
-                    or sum(launched.values()) != n_chunks):
+                    or raster_launches(launched) != n_chunks):
                 raise AssertionError(f"{source} path launches {launched}")
             if not np.array_equal(got_frames, want_frames):
                 d = np.abs(got_frames.astype(np.int16)
@@ -609,7 +624,7 @@ def phase_rnet(cfg, synth, panel, pcm, dev, counts, reset_counts,
     frames = synth.synthesize(panel, pcm, ident)
     launched = counts()
     if (launched["raster_flat"] != n_chunks
-            or sum(launched.values()) != n_chunks):
+            or raster_launches(launched) != n_chunks):
         raise AssertionError(f"R-Net identity path launches {launched}")
     if frames.shape != (FRAMES, s, s, 3) or not frames.std(axis=0).max() > 0:
         raise AssertionError(f"R-Net identity frames {frames.shape}")
@@ -766,7 +781,7 @@ def phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
         launched = counts()
         wrote = sorted(os.listdir(td))
     if (launched["raster_flat"] != n_video
-            or sum(launched.values()) != n_video):
+            or raster_launches(launched) != n_video):
         raise AssertionError(f"mesh video launches {launched}: K1 once per "
                              f"chunk of {VIDEO_CHUNK}")
     if (frames.shape != (FRAMES, VIDEO_SIZE, VIDEO_SIZE, 3)
@@ -1033,7 +1048,8 @@ def phase_train_bfmnet(dev, counts, reset_counts, card, work):
     launched = counts()
     logger.close()
     n_grid = 2 * (steps // every)
-    if launched["raster_flat"] != n_grid or sum(launched.values()) != n_grid:
+    if (launched["raster_flat"] != n_grid
+            or raster_launches(launched) != n_grid):
         raise AssertionError(f"bfmnet fit launches {launched}: K1 twice per "
                              f"eval, {steps // every} evals")
     with open(logger.path) as f:
@@ -1357,7 +1373,7 @@ def phase_from_checkpoints(cfg, face_model, bfm_dir, px_dir, panel, pcm,
     wall = time.perf_counter() - t0
     launched = counts()
     if (launched["raster_flat"] != n_chunks
-            or sum(launched.values()) != n_chunks):
+            or raster_launches(launched) != n_chunks):
         raise AssertionError(f"from_checkpoints launches {launched}")
     with syn.Synthesizer(cfg, face_model,
                          CheckpointManager(bfm_dir).load()["model"],
@@ -1534,7 +1550,7 @@ def phase_pixflow(cfg_main, synth, identity, panel, pcm, dev, counts,
         launched = counts()
         wrote = len(os.listdir(td))
     u8 = (np.clip(frames, 0, 1) * 255).astype(np.uint8)
-    if launched["raster_flat"] != n_k1 or sum(launched.values()) != n_k1:
+    if launched["raster_flat"] != n_k1 or raster_launches(launched) != n_k1:
         raise AssertionError(f"infer_bfm_pixflow launches {launched}: K1 "
                              f"once per {VIDEO_CHUNK} frames")
     if (u8.shape != (FRAMES, s, s, 3) or not u8.std(axis=0).max() > 0
@@ -2370,7 +2386,7 @@ def phase_prep(dev, counts, reset_counts, card, work):
         launches[step] = launched["raster_flat"]
         want = 0 if step == 1 else -(-t // CHUNK)
         if n != 1 or launched["raster_flat"] != want \
-                or sum(launched.values()) != want:
+                or raster_launches(launched) != want:
             raise AssertionError(f"prep step {step}: {n} clips, launches "
                                  f"{launched}, want K1 {want}")
     size6 = cfg.pixrefer.img_size
@@ -2824,6 +2840,81 @@ BENCH_MIN_RUNS = 4
 ENTRY_MEAN_CODES = 0.01
 
 
+def raster_launches(launched):
+    """The raster kernels' launches in a ``counts()`` reading (the batch
+    norm's are counted beside them, under ``batchnorm``)."""
+    return sum(n for name, n in launched.items() if name != "batchnorm")
+
+
+def phase_bn(dev, card):
+    """The generators' batch norm kernels (``ops/batchnorm.py``,
+    ``csrc/norm.cu``): its build; on every BN shape of both served
+    generators, bf16 and float32, each moment mode, channels_last, the
+    moments within 1e-5 of float64 and bit-equal to ``moments_plain``, the
+    output byte-equal to the plain version and to eager ``normalize`` of
+    its own moments; the whole generators no further from float32 than
+    eager, the counters of a forward and of a training step; the kernels'
+    ms against the bound, the plain version's, eager's and the library's
+    one call (``library_ms``) on the prediction's shapes.  Returns the
+    times of the largest (PixFlow's decoder_2) and the largest |Δ| from
+    the plain version over every case (``max_abs_err``)."""
+    import torch
+    from voicepuppet_torch.ops import batchnorm as bn
+    from voicepuppet_torch.ops import batchnorm_selftest as bst
+    t0 = time.perf_counter()
+    bn.LIBRARY.function()
+    log(f"bn build: csrc/norm.cu in {time.perf_counter() - t0:.2f} s")
+    for line in bn.LIBRARY.build_log.splitlines():
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
+            log(f"  ptxas: {line.strip()}")
+    worst, err, eager_err, cases = 0.0, 0.0, 0.0, 0
+    for _, shape, own in bst.served_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            for per_frame in (own, not own):
+                r = bst.check_shape(shape, dtype, per_frame, dev)
+                worst = max(worst, r["moment_rel"])
+                err = max(err, r["max_abs_err"])
+                eager_err = max(eager_err, r["eager_abs_err"])
+                cases += 1
+    log(f"bn shapes: {cases} cases (every BN shape of both generators, "
+        f"bf16 and float32, both moment modes, channels_last): moments "
+        f"within {worst:.3e} of float64 (band {bst.MOMENT_REL}), bit-equal "
+        f"to moments_plain; outputs byte-equal to the plain version (max "
+        f"|Δ| {err}) and to eager normalize of the kernels' moments, and run "
+        f"to run; max |Δ| from the eager module with its own moments "
+        f"{eager_err}")
+    for name, r in bst.check_generators(dev).items():
+        log(f"bn generator {name}: mean |Δ| from float32 G: kernels "
+            f"{r['kernel_vs_float32']:.5g}, eager {r['eager_vs_float32']:.5g} "
+            f"(band {bst.GEN_DRIFT}x), library one-call "
+            f"{r['library_vs_float32']:.5g}; from eager: kernels "
+            f"{r['kernel_vs_eager']:.5g}, eager with its moments' sums "
+            f"reordered {r['reordered_vs_eager']:.5g}; G forward "
+            f"{r['kernel_g_ms']:.3f} ms with the kernels, "
+            f"{r['library_g_ms']:.3f} ms with the library's batch norm; "
+            f"vp.bn.fused {r['fused']} of {r['bn_elements']} BN elements, "
+            f"vp.bn.eager {r['eager']}; {card}")
+    r = bst.training_step_counts(dev)
+    log(f"bn training step: vp.bn.fused {r['fused']}, vp.bn.eager "
+        f"{r['eager']}")
+    timed = []
+    for label, shape, per_frame in (
+            ("pixflow decoder_2", (32, 128, 256, 256), True),
+            ("pixrefer merged2_decoder_2", (32, 64, 256, 256), False),
+            ("pixrefer merged_encoder_5", (32, 512, 2, 2), False)):
+        r = bst.time_shape(shape, torch.bfloat16, per_frame, dev)
+        timed.append(r)
+        pl = bn.plan(shape, per_frame, 2, True)
+        log(f"bn time {label} {list(shape)} bf16 per_frame={per_frame} "
+            f"channels_last: kernel {r['kernel_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, kernel/bound {r['ratio']:.3f}, plain "
+            f"{r['plain_ms']:.4f}, eager {r['eager_ms']:.4f}, library_ms "
+            f"(one call) {r['library_ms']:.4f}; {pl}; {card}")
+    torch.cuda.synchronize()
+    return dict(timed[0], max_abs_err=err)
+
+
 def phase_bench(cfg, trees, dev, counts, reset_counts, card):
     """26. (a) ``voicepuppet_torch.bench.measure`` on the card with the
     full workload (Config(), the 189² BFM, 8 s of audio: 201 frames, 7
@@ -2910,7 +3001,7 @@ def phase_bench(cfg, trees, dev, counts, reset_counts, card):
     out = frame_step(*args)
     torch.cuda.synchronize()
     launched = counts()
-    if launched["raster_flat"] != 1 or sum(launched.values()) != 1:
+    if launched["raster_flat"] != 1 or raster_launches(launched) != 1:
         raise AssertionError(f"entry launches {launched}: K1 once")
     main_k1 += 1
     gen, coeff, angles, background, face3d_ref, fg_ref = args
@@ -2972,6 +3063,8 @@ def main():
     from voicepuppet_torch.models import pixrefer as px
     from voicepuppet_torch import ops as tops
     from voicepuppet_torch.ops import KERNELS, render_colors_auto
+    from voicepuppet_torch.ops import batchnorm
+    from voicepuppet_torch.ops import batchnorm_selftest as bst
     from voicepuppet_torch.ops import raster_probes as probes
     from voicepuppet_torch.ops import raster_selftest
     from voicepuppet_torch.ops.raster import LIBRARY
@@ -2990,9 +3083,12 @@ def main():
     def reset_counts():
         for k in every_kernel:
             k.launches = 0
+        batchnorm.LIBRARY.launches = 0
 
     def counts():
-        return {k.name: k.launches for k in every_kernel}
+        got = {k.name: k.launches for k in every_kernel}
+        got["batchnorm"] = batchnorm.LIBRARY.launches
+        return got
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3019,6 +3115,11 @@ def main():
     log(f"parity: {len(report)} quirk cases bit-exact kernel == plain "
         f"(K1; K4 at groups {raster_selftest.GROUP_SIZES}; K3; K5), "
         f"({time.perf_counter() - t0:.2f} s): {json.dumps(report)}")
+
+    # ---- 2b. the generators' batch norm kernels -------------------------
+    t0 = time.perf_counter()
+    bn_run = phase_bn(dev, card)
+    log(f"phase 2b (bn kernels) {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. the main path at full width ---------------------------------
     cfg = tcfg.Config()
@@ -3087,23 +3188,35 @@ def main():
         f"{interp_covered / CHUNK:.0f} interp")
 
     n_chunks = -(-FRAMES // CHUNK)
+    bn_modules = sum(isinstance(m, px.StatelessBatchNorm)
+                     for m in synth.gen.modules())
     reset_counts()
     t0 = time.perf_counter()
-    frames = synth.synthesize(panel, pcm, identity)
+    served = []
+    bn_calls = len(bst._bn_inputs(synth.gen, lambda: served.append(
+        synth.synthesize(panel, pcm, identity))))
+    frames = served[0]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launched = counts()
     launches = launched["raster_flat"]
-    if launches != n_chunks or sum(launched.values()) != launches:
+    if launches != n_chunks or raster_launches(launched) != launches:
         raise AssertionError(f"main path launches {launched} for "
                              f"{n_chunks} chunks: K1 once per chunk and "
-                             "nothing else")
+                             "no other raster kernel")
+    bn_launches = launched["batchnorm"]
+    if not bn_launches == bn_calls == n_chunks * bn_modules:
+        raise AssertionError(f"main path batch norm launches {bn_launches}"
+                             f", BN calls {bn_calls}: every call of G's "
+                             f"{bn_modules} BN modules in each of {n_chunks}"
+                             " chunks on the kernels")
     if frames.shape != (FRAMES, s, s, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"frames {frames.dtype} {frames.shape}")
     if not frames.std(axis=0).max() > 0 or frames.max() == 0:
         raise AssertionError("frames are constant")
     log(f"main path: synthesize -> {frames.shape} {frames.dtype}, raster "
-        f"launches {launches} for {n_chunks} chunks, first call "
+        f"launches {launches} for {n_chunks} chunks, batch norm launches "
+        f"{bn_launches} ({bn_modules} a G forward), first call "
         f"{first_s:.3f} s")
 
     times = []
@@ -3216,7 +3329,7 @@ def main():
         stream_runs.append((first_block_s, total_s))
     k4_launches = stream_launched["raster_grouped"]
     if (k4_launches != len(stream_blocks)
-            or sum(stream_launched.values()) != k4_launches):
+            or raster_launches(stream_launched) != k4_launches):
         raise AssertionError(f"streaming launches {stream_launched} for "
                              f"{len(stream_blocks)} blocks: K4 once per "
                              "block and nothing else")
@@ -3264,7 +3377,7 @@ def main():
         tex_launched = counts()
         if (tex_launched["raster_interp"] != 1
                 or tex_launched["raster_interp_grouped"] != 1
-                or sum(tex_launched.values()) != 2):
+                or raster_launches(tex_launched) != 2):
             raise AssertionError(f"texture path launches {tex_launched}: "
                                  "K3 and K5 once each")
         want_tex = plain.render_texture(verts, tri, tex, uv, tri, 224, 224)
@@ -3739,6 +3852,13 @@ def main():
         ("probe_band_regacc", "experiments/profile_raster_regacc.py:49",
          probe_launched["probe_band_regacc"], x3_err, x3_ms["win16_fb8"],
          x3p_ms, x3_bound[0], x3_bound[1]))]
+    kernels.append({
+        "name": "batchnorm", "route": "cuda",
+        "source": "voicepuppet_torch/csrc/norm.cu", "replaces": None,
+        "launches": bn_launches, "max_abs_err": bn_run["max_abs_err"],
+        "ms": bn_run["kernel_ms"], "plain_ms": bn_run["plain_ms"],
+        "bound_ms": bn_run["bound_ms"], "bound_by": "bytes",
+        "library_ms": bn_run["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

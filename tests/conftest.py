@@ -22,6 +22,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: needs an NVIDIA GPU; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(1234)

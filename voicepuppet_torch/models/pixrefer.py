@@ -34,7 +34,9 @@ from torch import nn
 from voicepuppet_torch.models.layers import (SameConv2d,
                                              SameConvTranspose2d, SyncBN,
                                              same_pads)
+from voicepuppet_torch.ops import batchnorm
 from voicepuppet_torch.parallel.mesh import AllReduceSum, spans_ranks
+from voicepuppet_torch.utils import tracing
 
 
 def lrelu(x, a: float = 0.2):
@@ -48,7 +50,13 @@ class StatelessBatchNorm(SyncBN):
     across them, as the JAX module pmeans them (pixrefer.py:81-83).
     ``moment_dims``: the NCHW axes the moments are taken over; (2, 3)
     gives each frame its own moments, as a batch of one would
-    (``PixFlowNet.per_frame_moments``)."""
+    (``PixFlowNet.per_frame_moments``).
+
+    On a CUDA tensor with no autograd graph wanted (the serving paths'
+    inference mode) the moments and the normalisation run as
+    ``ops/batchnorm.py``'s kernels (x read twice, y written once),
+    counted as ``vp.bn.fused``; every other call runs the eager formula
+    below, a CUDA one counted as ``vp.bn.eager``."""
 
     moment_dims = (0, 2, 3)
 
@@ -59,6 +67,13 @@ class StatelessBatchNorm(SyncBN):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x):
+        if x.is_cuda:
+            if self._fused(x):
+                tracing.count("vp.bn.fused", x.numel())
+                return batchnorm.stateless_bn(
+                    x, self.weight, self.bias, self.epsilon,
+                    tuple(self.moment_dims) == (2, 3))
+            tracing.count("vp.bn.eager", x.numel())
         xf = x.float()
         mean = xf.mean(dim=self.moment_dims, keepdim=True)
         mean2 = torch.square(xf).mean(dim=self.moment_dims, keepdim=True)
@@ -67,6 +82,16 @@ class StatelessBatchNorm(SyncBN):
             both = both / dist.get_world_size(self.group)
             mean, mean2 = both[:1], both[1:]
         return self.normalize(xf, mean, mean2).to(x.dtype)
+
+    def _fused(self, x) -> bool:
+        """Whether ``ops/batchnorm.py``'s kernels take this call: no
+        autograd graph wanted (the serving paths' inference mode), moments
+        of this process alone, a moment mode they have, and an input they
+        take (a bf16 or float32 channels_last CUDA tensor, the served
+        generators' layout)."""
+        return (not torch.is_grad_enabled() and not spans_ranks(self.group)
+                and tuple(self.moment_dims) in ((0, 2, 3), (2, 3))
+                and batchnorm.unsupported(x, self.weight, self.bias) is None)
 
     def normalize(self, xf, mean, mean2):
         """float32 ``xf`` normalized with given moments ([1,C,1,1] mean

@@ -35,52 +35,17 @@ triangle with an index outside [0, V) instead of reading out of bounds.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from voicepuppet_torch.face3d import raster as plain
+from voicepuppet_torch.utils import native
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "raster.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA raster kernels are built "
-                       "from csrc/raster.cu at their first CUDA call")
-
-
-def build_library(src: str = _SRC, build_dir: str = BUILD_DIR) -> Tuple[str, str]:
-    """Compile ``src`` into ``build_dir`` (named by the source hash, so an
-    edited source rebuilds).  Returns (library path, nvcc's output)."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    os.makedirs(build_dir, exist_ok=True)
-    lib = os.path.join(build_dir, f"libvp_raster_{digest}.so")
-    if os.path.exists(lib):
-        return lib, ""
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
 
 
 class RasterLibrary:
@@ -96,7 +61,8 @@ class RasterLibrary:
     def _load(self):
         with self._lock:
             if self._lib is None:
-                path, self.build_log = build_library()
+                path, self.build_log = native.build_cuda_library(
+                    _SRC, "vp_raster")
                 lib = ctypes.CDLL(path)
                 lib.vp_raster.argtypes = ([ctypes.c_void_p] * 3
                                           + [ctypes.c_int] * 8
