@@ -329,6 +329,37 @@ def device_split(fn, calls=5):
     return {k: (n, round(t / n, 3)) for k, (n, t) in split.items()} or None
 
 
+def canvas_k1_check(coeff, fm, angles, size, launches, card):
+    """K1 into the drivers' ``size``² canvas (``render_canvas``) against
+    the plain raster and the bound: logged; the largest byte difference."""
+    import torch
+    from voicepuppet_torch import ops as tops
+    from voicepuppet_torch.face3d import raster as plain
+    from voicepuppet_torch.ops import raster_selftest
+    from voicepuppet_torch.pipeline import synthesize as syn
+    with torch.inference_mode():
+        verts, colors = syn.canvas_mesh(coeff, fm, angles, size)
+        tri = fm.tri
+        got = syn.render_canvas(coeff, fm, angles, size)
+        want = plain.render_colors(verts, colors, tri, size, size)
+        torch.cuda.synchronize()
+        raster_selftest.expect_equal(got[1], want[1], f"{size}² K1 mask")
+        raster_selftest.expect_equal(got[0], want[0], f"{size}² K1 image")
+        err = int((got[0].int() - want[0].int()).abs().max())
+        k_ms = cuda_ms(lambda: tops.render_colors_auto(
+            verts, colors, tri, h=size, w=size), 50, 5)
+        p_ms = cuda_ms(lambda: plain.render_colors(
+            verts, colors, tri, size, size), 3, 1)
+        winner, _ = plain.rasterize_winner(verts, tri, size, size)
+        bound, bound_by, nbytes, ops, _ = raster_bound_ms(
+            verts, colors, tri, winner, size, size)
+    log(f"raster {size}² B={coeff.shape[0]}: K1 bit-exact kernel == plain; "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
+        f"{k_ms / bound:.2f}; {launches}; {card}")
+    return err
+
+
 def raster_bound_ms(verts, colors, tris, winner, h, w):
     """Least time for one flat raster call: the bytes it must move over HBM
     bandwidth, against the float32 operations this data needs (per live
@@ -581,7 +612,6 @@ def phase_rnet(cfg, synth, panel, pcm, dev, counts, reset_counts,
     import numpy as np
     import torch
     from voicepuppet_torch.pipeline import detect, rnet
-    from voicepuppet_torch.pipeline import synthesize as syn
     from voicepuppet_torch.tools import tf_bundle as tb
     gen = torch.Generator().manual_seed(SEED + 5)
     calib = torch.rand((2, 224, 224, 3), generator=gen) * 255.0
@@ -644,6 +674,17 @@ def phase_leftovers(cfg, face_model, trees, synth, identity, panel, pcm,
     from voicepuppet_torch.pipeline import synthesize as syn
     from voicepuppet_torch.pipeline.align import head_sway_angles
     s = cfg.pixrefer.img_size
+
+    def zero_chunk(sy):
+        """One chunk of zero inputs through ``sy``'s frame program."""
+        return sy.frame_program_for(identity)(
+            torch.zeros((CHUNK, 257), device=dev),
+            torch.zeros((CHUNK, 3), device=dev),
+            torch.zeros((1, s, s, 3), device=dev),
+            torch.zeros((CHUNK,), dtype=torch.int64, device=dev),
+            torch.zeros((s, s, 3), device=dev),
+            torch.zeros((s, s, 3), device=dev))
+
     synth16 = syn.Synthesizer(cfg, face_model, *trees, chunk=CHUNK,
                               bfmnet_dtype=torch.bfloat16)
     with torch.inference_mode():
@@ -674,15 +715,7 @@ def phase_leftovers(cfg, face_model, trees, synth, identity, panel, pcm,
                     sy.synthesize(panel, pcm, identity)
                     times.append(time.perf_counter() - t0)
                 with torch.inference_mode():
-                    out = sy.frame_program(
-                        sy.frame_geometry(identity),
-                        torch.zeros((CHUNK, 257), device=dev),
-                        torch.zeros((CHUNK, 3), device=dev),
-                        torch.zeros((1, s, s, 3), device=dev),
-                        torch.zeros((CHUNK,), dtype=torch.int64,
-                                    device=dev),
-                        torch.zeros((s, s, 3), device=dev),
-                        torch.zeros((s, s, 3), device=dev)).cpu().numpy()
+                    out = zero_chunk(sy).cpu().numpy()
                 host = []
                 for _ in range(3):
                     t0 = time.perf_counter()
@@ -705,13 +738,7 @@ def phase_leftovers(cfg, face_model, trees, synth, identity, panel, pcm,
         raise AssertionError(f"rgb8 luma off yuv420 by {dl.mean()}")
 
     est = synth.estimate_chunk_compute(identity, k=4, repeats=3)
-    split = device_split(lambda: synth.frame_program(
-        synth.frame_geometry(identity), torch.zeros((CHUNK, 257), device=dev),
-        torch.zeros((CHUNK, 3), device=dev),
-        torch.zeros((1, s, s, 3), device=dev),
-        torch.zeros((CHUNK,), dtype=torch.int64, device=dev),
-        torch.zeros((s, s, 3), device=dev),
-        torch.zeros((s, s, 3), device=dev)), calls=3)
+    split = device_split(lambda: zero_chunk(synth), calls=3)
     prof_ms = (sum(n * us for n, us in split.values()) / 3 / 1e3
                if split else float("nan"))
     log(f"estimate_chunk_compute: {est * 1e3:.4f} ms per chunk of {CHUNK} "
@@ -761,12 +788,7 @@ def phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
     """13. infer_bfmnet: the 55-frame clip as a 672² mesh video through K1
     in chunks of 8; K1 against its plain version at 672², B = 8."""
     import tempfile
-    import numpy as np
     import torch
-    from voicepuppet_torch import ops as tops
-    from voicepuppet_torch.face3d import morph
-    from voicepuppet_torch.face3d import raster as plain
-    from voicepuppet_torch.ops import raster_selftest
     from voicepuppet_torch.pipeline import infer_drivers
     from voicepuppet_torch.pipeline import synthesize as syn
     n_video = -(-FRAMES // VIDEO_CHUNK)
@@ -799,33 +821,8 @@ def phase_mesh_video(cfg, synth, identity, pcm, dev, counts, reset_counts,
         ang = torch.zeros((VIDEO_CHUNK, 3), device=dev)
         ang[:, 1] = torch.as_tensor(infer_drivers.sweep_yaw(VIDEO_CHUNK),
                                     device=dev)
-        rec = morph.reconstruct_rotation(coeff, synth.fm, ang)
-        scale = VIDEO_SIZE / 224.0
-        verts = torch.cat([(112.0 - rec.face_shape[..., :2] * 112.0) * scale,
-                           rec.face_shape[..., 2:3] * scale], -1).contiguous()
-        colors = torch.floor(torch.clamp(rec.face_color, 0.0,
-                                         255.0)).contiguous()
-        tri = synth.fm.tri
-        got = tops.render_colors_auto(verts, colors, tri, h=VIDEO_SIZE,
-                                      w=VIDEO_SIZE)
-        want = plain.render_colors(verts, colors, tri, VIDEO_SIZE,
-                                   VIDEO_SIZE)
-        torch.cuda.synchronize()
-        raster_selftest.expect_equal(got[1], want[1], "672² K1 mask")
-        raster_selftest.expect_equal(got[0], want[0], "672² K1 image")
-        k_ms = cuda_ms(lambda: tops.render_colors_auto(
-            verts, colors, tri, h=VIDEO_SIZE, w=VIDEO_SIZE), 50, 5)
-        p_ms = cuda_ms(lambda: plain.render_colors(
-            verts, colors, tri, VIDEO_SIZE, VIDEO_SIZE), 3, 1)
-        winner, _ = plain.rasterize_winner(verts, tri, VIDEO_SIZE,
-                                           VIDEO_SIZE)
-        bound, bound_by, nbytes, ops, _ = raster_bound_ms(
-            verts, colors, tri, winner, VIDEO_SIZE, VIDEO_SIZE)
-    log(f"raster {VIDEO_SIZE}² B={VIDEO_CHUNK}: K1 bit-exact kernel == "
-        f"plain; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
-        f"{k_ms / bound:.2f}; {n_video} launches per infer_bfmnet call; "
-        f"{card}")
+    canvas_k1_check(coeff, synth.fm, ang, VIDEO_SIZE,
+                    f"{n_video} launches per infer_bfmnet call", card)
 
 
 # ---- 14-17. training ---------------------------------------------------------
@@ -1464,14 +1461,10 @@ def phase_pixflow(cfg_main, synth, identity, panel, pcm, dev, counts,
     import numpy as np
     import torch
     from voicepuppet_torch import config as tcfg
-    from voicepuppet_torch import ops as tops
     from voicepuppet_torch.data.generators import (BackgroundBatches,
                                                    FileSource,
                                                    PixFlowBatcher,
                                                    prefetch_to_device)
-    from voicepuppet_torch.face3d import morph
-    from voicepuppet_torch.face3d import raster as plain
-    from voicepuppet_torch.ops import raster_selftest
     from voicepuppet_torch.pipeline import infer_drivers
     from voicepuppet_torch.pipeline import synthesize as syn
     from voicepuppet_torch.train.checkpoint import CheckpointManager
@@ -1565,32 +1558,9 @@ def phase_pixflow(cfg_main, synth, identity, panel, pcm, dev, counts,
     with torch.inference_mode():
         coeff = syn.splice_coeff_sequence(
             identity.bfmcoeff, synth.predict_expressions(pcm))[:VIDEO_CHUNK]
-        rec = morph.reconstruct_rotation(
-            coeff, synth.fm, torch.zeros((VIDEO_CHUNK, 3), device=dev))
-        scale = s / 224.0
-        verts = torch.cat([(112.0 - rec.face_shape[..., :2] * 112.0) * scale,
-                           rec.face_shape[..., 2:3] * scale], -1).contiguous()
-        colors = torch.floor(torch.clamp(rec.face_color, 0.0,
-                                         255.0)).contiguous()
-        tri = synth.fm.tri
-        got = tops.render_colors_auto(verts, colors, tri, h=s, w=s)
-        want = plain.render_colors(verts, colors, tri, s, s)
-        torch.cuda.synchronize()
-        raster_selftest.expect_equal(got[1], want[1], "512² K1 mask")
-        raster_selftest.expect_equal(got[0], want[0], "512² K1 image")
-        err = int((got[0].int() - want[0].int()).abs().max())
-        k_ms = cuda_ms(lambda: tops.render_colors_auto(
-            verts, colors, tri, h=s, w=s), 50, 5)
-        p_ms = cuda_ms(lambda: plain.render_colors(verts, colors, tri, s, s),
-                       3, 1)
-        winner, _ = plain.rasterize_winner(verts, tri, s, s)
-        bound, bound_by, nbytes, ops, _ = raster_bound_ms(
-            verts, colors, tri, winner, s, s)
-    log(f"raster {s}² B={VIDEO_CHUNK}: K1 bit-exact kernel == plain; "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({bound_by}: {nbytes} B, {ops} ops), kernel/bound "
-        f"{k_ms / bound:.2f}; {n_k1} launches per infer_bfm_pixflow call; "
-        f"{card}")
+    err = canvas_k1_check(coeff, synth.fm,
+                          torch.zeros((VIDEO_CHUNK, 3), device=dev), s,
+                          f"{n_k1} launches per infer_bfm_pixflow call", card)
 
     clip0 = sorted(os.listdir(os.path.join(work, "panels0")),
                    key=lambda n: int(n.split(".")[0]))
@@ -3156,8 +3126,8 @@ def main():
         covered = raster_selftest.check_against_plain(
             verts, colors, tri, 224, 224, "full mesh")
         want_img, want_mask = plain.render_colors(verts, colors, tri)
-        got_img, got_mask = render_colors_auto(verts, colors, tri, h=224,
-                                               w=224, bb=synth.raster_bb)
+        got_img, got_mask = render_colors_auto(
+            verts, colors, tri, h=224, w=224, bb=synth.program.raster_bb)
         torch.cuda.synchronize()
         raster_selftest.expect_equal(got_mask, want_mask, "auto mask")
         raster_selftest.expect_equal(got_img, want_img, "auto image")

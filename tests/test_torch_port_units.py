@@ -90,6 +90,49 @@ def test_port_imports_no_jax():
                 assert name.split(".")[0] not in banned, (path, name)
 
 
+def _generator_name_tests(tree):
+    """Line numbers of the comparisons of a generator's name (``generator``,
+    ``cfg.generator``, ``synth.generator``, ...) with a string, or with a
+    tuple, list or set of strings, in ``tree``."""
+    def named(x):
+        return getattr(x, "attr", getattr(x, "id", None)) == "generator"
+
+    def literal(x):
+        if isinstance(x, (ast.Tuple, ast.List, ast.Set)):
+            return any(literal(e) for e in x.elts)
+        return isinstance(x, ast.Constant) and isinstance(x.value, str)
+    return [node.lineno for node in ast.walk(tree)
+            if isinstance(node, ast.Compare)
+            and any(named(x) for x in [node.left, *node.comparators])
+            and any(literal(x) for x in [node.left, *node.comparators])]
+
+
+@pytest.mark.parametrize("snippet", [
+    'if cfg.generator == "pixflow": pass',
+    'if synth.generator != "pixrefer": pass',
+    'pixflow = generator == "pixflow"',
+    'ok = self.cfg.generator in ("pixrefer", "pixflow")'])
+def test_the_generator_seam_check_sees_a_name_branch(snippet):
+    assert _generator_name_tests(ast.parse(snippet)) == [1]
+
+
+def test_pipeline_compares_no_generator_name():
+    """No module under ``voicepuppet_torch/pipeline/`` branches on the
+    served generator's name: its decisions live in its frame program,
+    which ``Synthesizer`` picks once from ``synthesize.FRAME_PROGRAMS``
+    (a table, not a comparison)."""
+    pipeline = os.path.join(REPO, "voicepuppet_torch", "pipeline")
+    found = []
+    for f in sorted(os.listdir(pipeline)):
+        if f.endswith(".py"):
+            with open(os.path.join(pipeline, f)) as fh:
+                tree = ast.parse(fh.read(), f)
+            found += [(f, n) for n in _generator_name_tests(tree)]
+    assert not found, found
+    assert set(tsyn.FRAME_PROGRAMS) == {"pixrefer", "pixflow"}
+    assert tconfig.Config().generator in tsyn.FRAME_PROGRAMS
+
+
 def test_config_copy_matches_reference():
     from voicepuppet_tpu.config import Config as JConfig
     j, t = JConfig(), tconfig.Config()

@@ -315,15 +315,45 @@ def test_the_reference_decode_is_the_drivers(case):
     from voicepuppet_torch.face3d import morph
     rows = torch.from_numpy(_rows(case, 4))
     fm = morph.device_bfm(BFMModel(**case.arrays), "cpu")
-    rec = morph.reconstruct_rotation(rows, fm, torch.zeros(4, 3))
-    scale = S / 224.0
-    want = torch.cat([(112.0 - rec.face_shape[..., :2] * 112.0) * scale,
-                      rec.face_shape[..., 2:3] * scale], -1)
+    want, want_colors = tsyn.canvas_mesh(rows, fm, torch.zeros(4, 3), S)
     verts, colors = ref_pixflow.canvas_mesh(
         rows, ref_face.face_model_on(case.arrays, "cpu"), S)
     np.testing.assert_allclose(verts.numpy(), want.numpy(), rtol=0,
                                atol=1e-5)
-    np.testing.assert_allclose(
-        colors.numpy(),
-        torch.floor(torch.clamp(rec.face_color, 0, 255)).numpy(), atol=1)
+    np.testing.assert_allclose(colors.numpy(), want_colors.numpy(), atol=1)
     assert ref_nets.set_tf32 is not None
+
+
+@pytest.mark.parametrize("group", [0, 4])
+def test_render_canvas_is_the_drivers_and_the_programs_raster(case, group):
+    """``render_canvas`` gives the bytes of the mesh-video driver at no yaw
+    (``render_coeff_video_frames``) and of the raster inside PixFlow's
+    frame program on the same rows (K1, or K4 at ``raster_group`` 4)."""
+    from voicepuppet_torch.pipeline import infer_drivers
+    rows = torch.from_numpy(_rows(case, 8))
+    zeros = torch.zeros(8, 3)
+    rasters = []
+    real = tsyn.render_colors_auto
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        rasters.append(out[0])
+        return out
+    with _synth(case) as synth:
+        synth.raster_group = group
+        got, mask = tsyn.render_canvas(rows, synth.fm, zeros, S, group)
+        driver = infer_drivers.render_coeff_video_frames(
+            rows, synth.fm, S, yaw_shift=0.0, chunk=8)
+        tsyn.render_colors_auto = keep
+        try:
+            with torch.inference_mode():
+                synth.frame_program(None, rows, zeros, None, None,
+                                    *(torch.as_tensor(r) for r in
+                                      _refs(case.panel)))
+        finally:
+            tsyn.render_colors_auto = real
+    assert got.dtype == torch.uint8 and got.shape == (8, S, S, 3)
+    assert 0 < float((mask > 0).float().mean()) < 1   # a face in the canvas
+    np.testing.assert_array_equal(got.numpy(), driver)
+    (program,) = rasters
+    np.testing.assert_array_equal(got.numpy(), program.numpy())

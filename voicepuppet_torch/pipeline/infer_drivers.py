@@ -60,9 +60,9 @@ def render_coeff_video_frames(coeff_seq, face_model, img_size: int = 672,
 
     As in the JAX package, the yaw is applied to the shape itself through
     ``reconstruct_rotation`` (the reference advances a yaw it never passes
-    on), and the shape's x, y map to ``(112 - xy * 112) * img_size / 224``."""
+    on); the canvas is ``synthesize.render_canvas``'s."""
     from voicepuppet_torch.face3d import morph
-    from voicepuppet_torch.ops import render_colors_auto
+    from voicepuppet_torch.pipeline.synthesize import render_canvas
 
     fm = (face_model if isinstance(face_model, morph.DeviceBFM)
           else morph.device_bfm(face_model, device))
@@ -70,8 +70,6 @@ def render_coeff_video_frames(coeff_seq, face_model, img_size: int = 672,
     coeffs = torch.as_tensor(coeff_seq, dtype=torch.float32, device=dev)
     t = coeffs.shape[0]
     yaw = torch.as_tensor(sweep_yaw(t, yaw_shift, yaw_bound), device=dev)
-    scale = img_size / 224.0
-    bb = max(6, int(np.ceil(7 * scale)))
     frames = np.zeros((t, img_size, img_size, 3), np.uint8)
     for start in range(0, t, chunk):
         n = min(chunk, t - start)
@@ -79,15 +77,7 @@ def render_coeff_video_frames(coeff_seq, face_model, img_size: int = 672,
         c[:n] = coeffs[start:start + n]
         ang = torch.zeros((chunk, 3), device=dev)
         ang[:n, 1] = yaw[start:start + n]
-        rec = morph.reconstruct_rotation(c, fm, ang)
-        shape = rec.face_shape
-        xy = (112.0 - shape[..., :2] * 112.0) * scale
-        z = shape[..., 2:3] * scale
-        verts = torch.cat([xy, z], dim=-1).contiguous()
-        colors = torch.floor(torch.clamp(rec.face_color, 0.0,
-                                         255.0)).contiguous()
-        imgs, _ = render_colors_auto(verts, colors, fm.tri, h=img_size,
-                                     w=img_size, bb=bb)
+        imgs, _ = render_canvas(c, fm, ang, img_size)
         frames[start:start + n] = imgs[:n].cpu().numpy()
     return frames
 

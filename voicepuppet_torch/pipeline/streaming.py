@@ -169,18 +169,13 @@ class StreamingSynthesizer:
                  face3d_ref: np.ndarray, fg_ref: np.ndarray,
                  background: Optional[np.ndarray] = None,
                  ctx_left: int = 24, ctx_right: int = 12):
-        if synth.generator != "pixrefer":
+        if not synth.program.live:
             raise NotImplementedError(
-                f"streaming a {synth.generator!r} Synthesizer is not "
+                f"streaming a {synth.cfg.generator!r} Synthesizer is not "
                 f"supported: only PixRefer is served live")
         self.synth = synth
         self.identity = identity
         s = synth.img_size
-        if background is None:
-            background = np.zeros((1, s, s, 3), np.float32)
-        background = np.asarray(background, np.float32)
-        if background.ndim == 3:
-            background = background[None]
         dev = synth.device
         self.coeffs = StreamingCoeffPredictor(synth, chunk=synth.chunk,
                                               ctx_left=ctx_left,
@@ -192,7 +187,9 @@ class StreamingSynthesizer:
                                            device=dev)
         self._fg_ref = torch.as_tensor(np.asarray(fg_ref, np.float32),
                                        device=dev)
-        self._bg_pool = torch.as_tensor(background, device=dev)
+        bg = np.zeros((s, s, 3)) if background is None else background
+        self._bg_pool = torch.as_tensor(
+            np.asarray(bg, np.float32).reshape(-1, s, s, 3), device=dev)
         self._program = synth.frame_program_for(identity)
         # frames emitted so far: the background pool cycles per frame
         # across blocks, as the batch driver's arange(T) % pool

@@ -29,19 +29,10 @@ dumps (``from_npz``), read with no TensorFlow by ``tools/``.
 equals the flat kernel's; the streaming driver (``pipeline/streaming.py``)
 reuses :meth:`Synthesizer.frame_program_for` and the fetch helpers.
 
-``cfg.generator`` selects the generator served.  ``"pixrefer"`` is the
-path above.  ``"pixflow"`` serves PixFlowNet as ``infer_bfm_pixflow.py``
-does, through the same entry points, chunks, tail buckets and drain:
-the coefficients decoded with no head angles and rasterized straight
-into the ``pixflow.img_size``² canvas (the driver's vertex mapping,
-``pipeline/infer_drivers.render_coeff_video_frames``), G fed the panel's
-reference render beside each frame's render and the panel's foreground,
-its convs in ``gan_dtype`` and each frame's BN moments its own (the
-driver runs G one frame at a time), composited on black (backgrounds
-are not used).  The part of G that every frame of a call shares under
-per-frame moments (``PixFlowGenerator.call_state``) runs once a
-``render_frames`` call.  PixFlow is served by one process: the
-streaming driver and a mesh of several ranks refuse it.
+``cfg.generator`` picks the served generator's frame program
+(``FRAME_PROGRAMS``): ``PixReferFrames``, the path above, or
+``PixFlowFrames``, PixFlowNet as ``infer_bfm_pixflow.py`` serves it,
+through the same entry points, chunks, tail buckets and drain.
 
 Sharded serving (``mesh=``, a ``parallel.mesh.DataGroup`` of several
 ranks, each a process with its own device): every rank builds the same
@@ -99,7 +90,6 @@ from voicepuppet_torch.weights import check_state_dict
 
 TRANSFER_FORMATS = ("yuv420", "rgb8")
 MESH_PARTITIONS = ("frames", "spatial")
-GENERATORS = ("pixrefer", "pixflow")
 DRAIN_DEPTH = 4         # chunks in flight between dispatch and drain
 
 
@@ -252,13 +242,6 @@ def frames_chunk(chunk: int, world: int) -> int:
     return c - c % world
 
 
-def generator_module(cfg: Config) -> torch.nn.Module:
-    """The served generator's module for ``cfg.generator``, float32."""
-    if cfg.generator == "pixflow":
-        return PixFlowNet(cfg.pixflow)
-    return px.PixReferNet(cfg.pixrefer)
-
-
 def tail_bucket(n: int, chunk: int, multiple: int = 1) -> int:
     """Frames rendered for a last chunk of ``n`` < ``chunk`` frames: the
     smallest power of two >= n, floor 8, then at least ``multiple`` and
@@ -270,6 +253,177 @@ def tail_bucket(n: int, chunk: int, multiple: int = 1) -> int:
     cc = max(cc, multiple)
     cc += -cc % multiple
     return min(cc, chunk)
+
+
+def canvas_mesh(coeff, fm, angles, size: int):
+    """The published drivers' mesh for a ``size``² canvas: coeff [B,257]
+    decoded with ``angles`` [B,3] turning the shape, x, y mapped to
+    ``(112 - xy * 112) * size / 224``, z scaled by size / 224, colours
+    ``floor(clamp(c, 0, 255))`` -> contiguous (verts, colors) [B,V,3]."""
+    rec = morph.reconstruct_rotation(coeff, fm, angles)
+    shape = rec.face_shape
+    scale = size / 224.0
+    xy = (112.0 - shape[..., :2] * 112.0) * scale
+    verts = torch.cat([xy, shape[..., 2:3] * scale], dim=-1).contiguous()
+    colors = torch.floor(torch.clamp(rec.face_color, 0.0, 255.0))
+    return verts, colors.contiguous()
+
+
+def render_canvas(coeff, fm, angles, size: int, group: int = 0):
+    """:func:`canvas_mesh` rasterized into the ``size``² canvas (K1, or K4
+    with ``group`` > 0) -> (image [B,S,S,3] uint8, mask); the drivers'
+    window ``bb``, which the port's kernels ignore, is passed on."""
+    verts, colors = canvas_mesh(coeff, fm, angles, size)
+    return render_colors_auto(verts, colors, fm.tri, h=size, w=size,
+                              bb=max(6, int(np.ceil(7 * size / 224.0))),
+                              group=group)
+
+
+def _background_pool(backgrounds, t: int, device):
+    """Backgrounds -> a device pool [P,S,S,3] and each of ``t`` frames'
+    index [T] in it: an array cycles per frame; an iterator gives one a
+    frame, each distinct object pooled once."""
+    if isinstance(backgrounds, np.ndarray):
+        pool = backgrounds.reshape((-1,) + backgrounds.shape[-3:])
+        idx = np.arange(t) % pool.shape[0]
+    else:
+        bgs = [next(backgrounds) for _ in range(t)]
+        first = {id(bg): bg for bg in bgs}      # in order of first use
+        slot = {key: i for i, key in enumerate(first)}
+        idx = np.array([slot[id(bg)] for bg in bgs], np.int64)
+        pool = np.stack(list(first.values()))
+    return (torch.as_tensor(np.asarray(pool, np.float32), device=device),
+            torch.as_tensor(idx, dtype=torch.int64, device=device))
+
+
+class PixReferFrames:
+    """PixRefer's frame program (infer_bfmvid.py): each face rasterized
+    at ``raster_size``² with the head sway, resized and pasted into the
+    ``img_size``² canvas at the identity's window, G fed the panel's
+    reference render and foreground, composited on the frame's background.
+
+    A frame program holds what differs between served generators: the
+    module, canvas, default angles, backgrounds, once-a-call state, one
+    chunk up to the frames ``pack_frames`` takes, and what it refuses
+    (``live``, ``sharded``, ``tf_name_map``).  ``Synthesizer`` keeps the
+    chunks, the mesh partitions, the pack, the drain and their spans."""
+
+    title = "PixRefer"
+    live = sharded = uses_backgrounds = True
+    call_state = None           # no once-a-call state
+    tf_name_map = staticmethod(tfc.pixrefer_generator_name_map)
+    default_angles = staticmethod(head_sway_angles)
+
+    def __init__(self, cfg: Config, raster_size: int, raster_bb: int):
+        self.img_size = cfg.pixrefer.img_size
+        self.raster_size, self.raster_bb = raster_size, raster_bb
+
+    @staticmethod
+    def module(cfg: Config) -> torch.nn.Module:
+        """The served generator, float32."""
+        return px.PixReferNet(cfg.pixrefer)
+
+    def geometry(self, identity: Identity):
+        """(out_hw, paste windows, colors_bgr) for an identity."""
+        ratio_total = identity.ratio * float(identity.transform_params[2])
+        tx = -int(identity.transform_params[3] / ratio_total)
+        ty = -int(identity.transform_params[4] / ratio_total)
+        out_hw = int(round(self.raster_size / ratio_total))
+        paste = _paste_geometry(out_hw, identity.center_x,
+                                identity.center_y, tx, ty, self.img_size)
+        return out_hw, paste, identity.colors_bgr
+
+    def frames(self, synth, geometry, coeff, angles, bg_pool, bg_idx,
+               face3d_ref, fg_ref, call_state):
+        """One chunk (this rank's rows of it under ``frames``, its band of
+        rows under ``spatial``) -> frames in [0, 1]: 3DMM decode, K1
+        raster, resize and paste, G, composite."""
+        out_hw, paste, colors_bgr = geometry
+        (ty0, ty1, tx0, tx1), (sy0, sy1, sx0, sx1) = paste
+        rs = self.raster_size
+        s = self.img_size
+        c = coeff.shape[0]
+        background = bg_pool[bg_idx]
+        rec = morph.reconstruct_rotation(coeff, synth.fm, angles,
+                                         image_size=float(rs))
+        verts = torch.cat([rec.face_projection, rec.z_buffer],
+                          dim=-1).contiguous()
+        colors = torch.floor(torch.clamp(rec.face_color, 0.0, 255.0))
+        if colors_bgr:
+            colors = colors.flip(-1)
+        img224 = render_colors_auto(verts, colors.contiguous(),
+                                    synth.fm.tri, h=rs, w=rs,
+                                    bb=self.raster_bb,
+                                    group=synth.raster_group)[0]
+        face = resize_linear(img224.float() / 255.0, out_hw)
+        canvas = torch.zeros((c, s, s, 3), device=coeff.device)
+        canvas[:, ty0:ty1, tx0:tx1] = face[:, sy0:sy1, sx0:sx1]
+        ref = face3d_ref[None].expand(c, -1, -1, -1)
+        inputs = torch.cat([ref, canvas], dim=-1)
+        fg_ref_b = fg_ref[None].expand(c, -1, -1, -1)
+        fg_inputs = torch.cat([fg_ref_b, torch.zeros_like(fg_ref_b)], dim=-1)
+        inputs, fg_inputs, background = (
+            px.preprocess(x) for x in (inputs, fg_inputs, background))
+        del rec, verts, colors, img224, face, canvas  # not held through G
+        part = synth._partition
+        group = None if part is None else synth.mesh.group
+        with tracing.span("vp.render.gen", size=c, device=synth.device):
+            if part == "spatial":
+                rows = spatial.RowSplit(group)
+                raw = spatial.generator_rows(synth.gen.generator, inputs,
+                                             fg_inputs[..., :3], group)
+                outputs, _, _ = px.composite(raw, rows.take(background, 1))
+            else:
+                with sync_bn(group, synth.gen):
+                    outputs, _, _ = synth.gen(inputs, fg_inputs, background)
+        return px.deprocess(outputs)
+
+
+class PixFlowFrames:
+    """PixFlow's frame program (infer_bfm_pixflow.py): each face, with no
+    head angles, rasterized into the ``img_size``² canvas
+    (:func:`render_canvas`); G's part shared by a call's frames
+    (``call_state``) once a call, its per-frame part on each frame's own
+    BN moments; composited on black.  One process serves it, not live."""
+
+    title = "PixFlow"
+    live = sharded = uses_backgrounds = False
+    tf_name_map = None          # no TF name map of PixFlowNet is ported
+    default_angles = staticmethod(lambda t: np.zeros((t, 3), np.float32))
+    geometry = staticmethod(lambda identity: None)  # no paste window
+
+    def __init__(self, cfg: Config, raster_size: int, raster_bb: int):
+        self.img_size = cfg.pixflow.img_size    # PixRefer's raster ignored
+
+    @staticmethod
+    def module(cfg: Config) -> torch.nn.Module:
+        """The served generator, float32, on per-frame BN moments."""
+        return PixFlowNet(cfg.pixflow).per_frame_moments()
+
+    @staticmethod
+    def call_state(gen, face3d_ref, fg_ref):
+        """G's shared part for the refs [S,S,3] in [0, 1]."""
+        return gen.generator.call_state(px.preprocess(face3d_ref[None]),
+                                        px.preprocess(fg_ref[None]))
+
+    def frames(self, synth, geometry, coeff, angles, bg_pool, bg_idx,
+               face3d_ref, fg_ref, call_state):
+        """One chunk -> frames in [0, 1]; ``call_state`` is computed here
+        when not given."""
+        if call_state is None:
+            call_state = self.call_state(synth.gen, face3d_ref, fg_ref)
+        img, _ = render_canvas(coeff, synth.fm, angles, self.img_size,
+                               synth.raster_group)
+        with tracing.span("vp.render.gen", size=coeff.shape[0],
+                          device=synth.device):
+            raw = synth.gen.generator.frame_forward(
+                call_state, px.preprocess(img.float() / 255.0))
+            outputs, _ = composite_black(raw)
+        return px.deprocess(outputs)
+
+
+# the served generator's frame program, by ``Config.generator``
+FRAME_PROGRAMS = {"pixrefer": PixReferFrames, "pixflow": PixFlowFrames}
 
 
 class Synthesizer:
@@ -289,8 +443,7 @@ class Synthesizer:
     ``raster_group``: > 0 selects the grouped raster kernel K4 (groups of
     that many consecutive triangles), 0 the flat kernel K1; both give the
     same frames.  ``raster_size`` / ``raster_bb``: PixRefer's raster
-    before the resize and paste; PixFlow rasterizes the image's own
-    canvas (``img_size``).
+    before the resize and paste; PixFlow ignores them.
     ``mesh``: a ``parallel.mesh.DataGroup`` (``make_mesh()`` under
     torchrun, or a ``parallel.spawn.run_ranks`` group); the device is then
     the rank's.  Over several ranks the calls are SPMD (module docstring)
@@ -320,16 +473,15 @@ class Synthesizer:
             raise NotImplementedError(
                 f"transfer_format {transfer_format!r}: only "
                 f"{' and '.join(TRANSFER_FORMATS)} are ported")
-        if cfg.generator not in GENERATORS:
+        if cfg.generator not in FRAME_PROGRAMS:
             raise ValueError(f"generator {cfg.generator!r}: one of "
-                             f"{GENERATORS}")
-        if (cfg.generator == "pixflow" and mesh is not None
-                and mesh.world > 1):
+                             f"{tuple(FRAME_PROGRAMS)}")
+        kind = FRAME_PROGRAMS[cfg.generator]
+        if not kind.sharded and mesh is not None and mesh.world > 1:
             raise NotImplementedError(
-                f"PixFlow serving on a mesh of {mesh.world} ranks is not "
+                f"{kind.title} serving on a mesh of {mesh.world} ranks is not "
                 f"supported: serve it in one process (mesh=None or a "
                 f"world-1 mesh)")
-        self.generator = cfg.generator
         self.mesh = mesh
         self.mesh_partition = mesh_partition
         # the partition actually served: None for one process
@@ -351,16 +503,11 @@ class Synthesizer:
         self.bfmnet = BFMNet(cfg.bfmnet, dtype=bfmnet_dtype)
         self.bfmnet.load_state_dict(bfmnet_state)
         self.bfmnet.to(self.device).eval()
-        self.gen = generator_module(cfg)
+        self.gen = kind.module(cfg)
         self.gen.load_state_dict(g_state)
         self.gen.set_conv_dtype(gan_dtype).to(self.device).eval()
-        self.img_size = cfg.pixrefer.img_size
-        if self.generator == "pixflow":
-            self.gen.per_frame_moments()
-            self.img_size = cfg.pixflow.img_size
-            raster_size = self.img_size
-            # the published driver's window (the kernels ignore it)
-            raster_bb = max(6, int(np.ceil(7 * raster_size / 224.0)))
+        self.program = kind(cfg, raster_size, raster_bb)
+        self.img_size = self.program.img_size
         if self._partition is not None:
             replicate([self.bfmnet, self.gen], mesh)
         if self._partition == "frames":
@@ -373,8 +520,6 @@ class Synthesizer:
         # tail bucketing in render_frames (the A/B switch of
         # experiments/profile_tail_bucket.py; always on in serving)
         self._tail_bucket = True
-        self.raster_size = raster_size
-        self.raster_bb = raster_bb
         self.raster_group = int(raster_group)
         self.transfer_format = transfer_format
         self.drain_workers = max(1, int(drain_workers))
@@ -416,14 +561,8 @@ class Synthesizer:
 
     # ---- program 2: coeffs -> frames (chunked) ----
     def frame_geometry(self, identity: Identity):
-        """(out_hw, paste windows, colors_bgr) for an identity."""
-        ratio_total = identity.ratio * float(identity.transform_params[2])
-        tx = -int(identity.transform_params[3] / ratio_total)
-        ty = -int(identity.transform_params[4] / ratio_total)
-        out_hw = int(round(self.raster_size / ratio_total))
-        paste = _paste_geometry(out_hw, identity.center_x,
-                                identity.center_y, tx, ty, self.img_size)
-        return out_hw, paste, identity.colors_bgr
+        """The frame program's geometry for an identity."""
+        return self.program.geometry(identity)
 
     def frame_program_for(self, identity: Identity):
         """The frame program bound to an identity's paste geometry:
@@ -442,32 +581,16 @@ class Synthesizer:
                       face3d_ref, fg_ref, call_state=None
                       ) -> Optional[torch.Tensor]:
         """One chunk: coeff [C,257], angles [C,3], bg_pool [P,S,S,3],
-        bg_idx [C], refs [S,S,3] -> packed uint8 frames.  Sharded, every
-        rank passes the whole chunk; rank 0 gets the packed chunk and the
-        other ranks None.  PixFlow: no background, and ``call_state``
-        (:meth:`pixflow_call_state` of the same refs) is computed here
-        when not given."""
-        if self.generator == "pixflow":
-            return self._pixflow_program(coeff, angles, face3d_ref, fg_ref,
-                                         call_state)
+        bg_idx [C], refs [S,S,3] (and PixFlow's ``call_state`` of them,
+        made here when not given) -> packed uint8 frames.  Sharded, every
+        rank passes the whole chunk; rank 0 gets it, the others None."""
         part = self._partition
-        group = None if part is None else self.mesh.group
         if part == "frames":
             coeff, angles, bg_idx = rank_rows((coeff, angles, bg_idx),
                                               self.mesh)
-        inputs, fg_inputs, background = self._generator_inputs(
-            geometry, coeff, angles, bg_pool, bg_idx, face3d_ref, fg_ref)
-        with tracing.span("vp.render.gen", size=coeff.shape[0],
-                          device=self.device):
-            if part == "spatial":
-                rows = spatial.RowSplit(group)
-                raw = spatial.generator_rows(self.gen.generator, inputs,
-                                             fg_inputs[..., :3], group)
-                outputs, _, _ = px.composite(raw, rows.take(background, 1))
-            else:
-                with sync_bn(group, self.gen):
-                    outputs, _, _ = self.gen(inputs, fg_inputs, background)
-        packed = pack_frames(px.deprocess(outputs), self.transfer_format)
+        frames = self.program.frames(self, geometry, coeff, angles, bg_pool,
+                                     bg_idx, face3d_ref, fg_ref, call_state)
+        packed = pack_frames(frames, self.transfer_format)
         if part is None:
             return packed
         parts = gather_to_main(packed, self.mesh)
@@ -479,63 +602,7 @@ class Synthesizer:
     def pixflow_call_state(self, face3d_ref, fg_ref):
         """PixFlow G's shared part for the refs [S,S,3] in [0,1] (the
         panel's render and foreground): ``call_state`` at batch 1."""
-        return self.gen.generator.call_state(
-            px.preprocess(face3d_ref[None]), px.preprocess(fg_ref[None]))
-
-    def _pixflow_program(self, coeff, angles, face3d_ref, fg_ref,
-                         call_state):
-        """PixFlow's chunk: decode, K1 into the img_size² canvas with the
-        published driver's vertex mapping, G's per-frame part, the black
-        composite and the pack."""
-        s = self.img_size
-        if call_state is None:
-            call_state = self.pixflow_call_state(face3d_ref, fg_ref)
-        rec = morph.reconstruct_rotation(coeff, self.fm, angles)
-        shape = rec.face_shape
-        scale = s / 224.0
-        xy = (112.0 - shape[..., :2] * 112.0) * scale
-        verts = torch.cat([xy, shape[..., 2:3] * scale], dim=-1).contiguous()
-        colors = torch.floor(torch.clamp(rec.face_color, 0.0, 255.0))
-        img, _ = render_colors_auto(verts, colors.contiguous(), self.fm.tri,
-                                    h=s, w=s, bb=self.raster_bb,
-                                    group=self.raster_group)
-        with tracing.span("vp.render.gen", size=coeff.shape[0],
-                          device=self.device):
-            raw = self.gen.generator.frame_forward(
-                call_state, px.preprocess(img.float() / 255.0))
-            outputs, _ = composite_black(raw)
-        return pack_frames(px.deprocess(outputs), self.transfer_format)
-
-    def _generator_inputs(self, geometry, coeff, angles, bg_pool, bg_idx,
-                          face3d_ref, fg_ref):
-        """3DMM decode, K1 raster, resize and paste -> the generator's
-        (inputs, fg_inputs, targets), NHWC in [-1, 1]."""
-        out_hw, paste, colors_bgr = geometry
-        (ty0, ty1, tx0, tx1), (sy0, sy1, sx0, sx1) = paste
-        rs = self.raster_size
-        s = self.img_size
-        c = coeff.shape[0]
-        background = bg_pool[bg_idx]
-        rec = morph.reconstruct_rotation(coeff, self.fm, angles,
-                                         image_size=float(rs))
-        verts = torch.cat([rec.face_projection, rec.z_buffer],
-                          dim=-1).contiguous()
-        colors = torch.floor(torch.clamp(rec.face_color, 0.0, 255.0))
-        if colors_bgr:
-            colors = colors.flip(-1)
-        img224, _ = render_colors_auto(verts, colors.contiguous(),
-                                       self.fm.tri, h=rs, w=rs,
-                                       bb=self.raster_bb,
-                                       group=self.raster_group)
-        face = resize_linear(img224.float() / 255.0, out_hw)
-        canvas = torch.zeros((c, s, s, 3), device=coeff.device)
-        canvas[:, ty0:ty1, tx0:tx1] = face[:, sy0:sy1, sx0:sx1]
-        ref = face3d_ref[None].expand(c, -1, -1, -1)
-        inputs = torch.cat([ref, canvas], dim=-1)
-        fg_ref_b = fg_ref[None].expand(c, -1, -1, -1)
-        fg_inputs = torch.cat([fg_ref_b, torch.zeros_like(fg_ref_b)], dim=-1)
-        return (px.preprocess(inputs), px.preprocess(fg_inputs),
-                px.preprocess(background))
+        return self.program.call_state(self.gen, face3d_ref, fg_ref)
 
     @torch.inference_mode()
     def render_frames(self, coeff_seq, identity: Identity,
@@ -549,40 +616,16 @@ class Synthesizer:
                                     device=dev)
         t = coeff_seq.shape[0]
         geometry = self.frame_geometry(identity)
-        pixflow = self.generator == "pixflow"
         if angles is None:
-            # PixFlow's driver renders with no head motion
-            angles = (np.zeros((t, 3), np.float32) if pixflow
-                      else head_sway_angles(t))
+            angles = self.program.default_angles(t)
         angles = torch.as_tensor(np.asarray(angles, np.float32), device=dev)
         face3d_ref = torch.as_tensor(np.asarray(face3d_ref, np.float32),
                                      device=dev)
         fg_ref = torch.as_tensor(np.asarray(fg_ref, np.float32), device=dev)
 
-        # backgrounds -> a device-resident pool + per-frame index
-        if pixflow:
-            bg_pool = bg_idx_all = None         # composited on black
-        elif isinstance(backgrounds, np.ndarray):
-            pool = backgrounds.reshape((-1,) + backgrounds.shape[-3:])
-            bg_idx_all = np.arange(t) % pool.shape[0]
-        else:
-            seen = []
-            bg_idx_all = np.zeros((t,), np.int64)
-            for i in range(t):
-                bg = next(backgrounds)
-                for j, s_ in enumerate(seen):
-                    if s_ is bg:
-                        bg_idx_all[i] = j
-                        break
-                else:
-                    seen.append(bg)
-                    bg_idx_all[i] = len(seen) - 1
-            pool = np.stack(seen)
-        if not pixflow:
-            bg_pool = torch.as_tensor(np.asarray(pool, np.float32),
-                                      device=dev)
-            bg_idx_all = torch.as_tensor(bg_idx_all, dtype=torch.int64,
-                                         device=dev)
+        bg_pool = bg_idx_all = None         # PixFlow composites on black
+        if self.program.uses_backgrounds:
+            bg_pool, bg_idx_all = _background_pool(backgrounds, t, dev)
 
         frames = np.zeros((t, self.img_size, self.img_size, 3), np.uint8)
         c = self.chunk
@@ -591,7 +634,7 @@ class Synthesizer:
         root = tracing.current()
         call = root.request if root is not None else tracing.new_request()
         call_state = None
-        if pixflow:
+        if self.program.call_state is not None:
             with tracing.span("vp.render.ref", request=call, device=dev):
                 call_state = self.pixflow_call_state(face3d_ref, fg_ref)
 
@@ -697,9 +740,7 @@ class Synthesizer:
         -> [n,S,S,3] uint8 RGB (YUV 4:2:0 by the native unpack, the bytes
         of :func:`_unpack_yuv420`)."""
         if self.transfer_format == "yuv420":
-            frames = unpack_yuv420(packed[:n], self.img_size)
-            tracing.count("vp.drain.native_frames", frames.shape[0])
-            return frames
+            return unpack_yuv420(packed[:n], self.img_size)
         return packed[:n]
 
     @torch.inference_mode()
@@ -831,7 +872,7 @@ class SynthesisAssets:
         generator's convs N(0, 0.02), BN scales 1 + N(0, 0.02))."""
         g = torch.Generator().manual_seed(seed)
         bfm = init_bfmnet_(BFMNet(cfg.bfmnet), g)
-        gen = px.init_pixrefer_(generator_module(cfg), g)
+        gen = px.init_pixrefer_(FRAME_PROGRAMS[cfg.generator].module(cfg), g)
         return bfm.state_dict(), gen.state_dict()
 
     @staticmethod
@@ -843,16 +884,16 @@ class SynthesisAssets:
         ``ValueError`` naming the first three missing, unexpected or
         mis-shaped variables of either.  PixRefer's G only: no TF name
         map of PixFlowNet is ported."""
-        if cfg.generator != "pixrefer":
+        kind = FRAME_PROGRAMS[cfg.generator]
+        if kind.tf_name_map is None:
             raise NotImplementedError(
                 f"TF-named weights of generator {cfg.generator!r}: only "
                 f"PixRefer's are mapped; load the port's checkpoints")
         bfm_own = _module_state(lambda: BFMNet(cfg.bfmnet))
-        g_own = _module_state(lambda: px.PixReferNet(cfg.pixrefer))
+        g_own = _module_state(lambda: kind.module(cfg))
         return (tfc.strict_state(bfmnet_arrays, bfm_own,
                                  tfc.bfmnet_rows(bfm_own), bfmnet_what),
-                tfc.strict_state(pixrefer_arrays, g_own,
-                                 tfc.pixrefer_generator_name_map(),
+                tfc.strict_state(pixrefer_arrays, g_own, kind.tf_name_map(),
                                  pixrefer_what))
 
     @staticmethod
@@ -905,7 +946,8 @@ class SynthesisAssets:
         states = []
         for directory, key, make in (
                 (bfmnet_ckpt_dir, "model", lambda: BFMNet(cfg.bfmnet)),
-                (pixrefer_ckpt_dir, "gen", lambda: generator_module(cfg))):
+                (pixrefer_ckpt_dir, "gen",
+                 lambda: FRAME_PROGRAMS[cfg.generator].module(cfg))):
             blob = CheckpointManager(directory).load()
             if blob is None:
                 raise FileNotFoundError(f"no checkpoint in {directory}")

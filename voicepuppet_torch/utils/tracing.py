@@ -5,7 +5,7 @@
 ``vp.render.drain_wait``, ``vp.drain.fetch_wait``, ``vp.drain.unpack``,
 ``vp.stream.coeff``, ``vp.stream.block``, ``vp.train.d_half``,
 ``vp.train.g_half``); ``count(name, n)`` adds to a counter
-(``vp.frames.served``, ``vp.frames.padded``, ``vp.drain.native_frames``).
+(``vp.frames.served``, ``vp.frames.padded``).
 What a span does depends on what is open:
 
 * nothing: one flag test, nothing allocated;
