@@ -32,15 +32,29 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         ms and the bound on the largest shapes.  Alone:
                         python3 -c "import torch, chip_smoke as c;
                         c.phase_bn(torch.device('cuda', 0), c.card_line())".
+  2c. gru kernel        build csrc/gru.cu (the coefficient programs' GRU
+                        recurrence, ops/gru.py) and print ptxas's registers,
+                        shared memory and spills; ops/gru_selftest.py: the
+                        kernel within 1e-5 of the eager loop and of its
+                        torch version at B 1 and 3, T 16 to 2048, units 256
+                        and 128, with and without a carried state, the same
+                        run to run; two calls with the state carried equal
+                        to one; the vp.gru.* counters of a served call, a
+                        live block and a BFMNet training step; the kernel's
+                        µs a step at T 64, 512 and 2048 beside the eager
+                        loop; predict_expressions card against CPU within
+                        2e-4 on a 367-frame clip.  Alone: python3 -c
+                        "import torch, chip_smoke as c;
+                        c.phase_gru(torch.device('cuda', 0), c.card_line())".
   3. main path          Config() (ngf 64, 512², BFMNet width 1.0),
                         synthetic_bfm(189, 189), chunk 32, random weights
                         from seed 0: Synthesizer.synthesize on 2.2 s of
                         audio (55 frames: one chunk of 32 and a tail bucket
                         of 32), the generator in bfloat16.  The flat raster
                         K1 must launch once per chunk, the batch norm
-                        kernels once for every BN call of G.  Then frames/s
-                        over timed repeats, a per-stage time breakdown of
-                        one chunk.
+                        kernels once for every BN call of G, the GRU kernel
+                        once a GRU layer.  Then frames/s over timed
+                        repeats, a per-stage time breakdown of one chunk.
   4. streaming path     the same weights in Synthesizer(raster_group=4):
                         StreamingSynthesizer fed the 55-frame clip in 0.2 s
                         pcm pieces, then flush.  The grouped raster K4 must
@@ -2812,8 +2826,10 @@ ENTRY_MEAN_CODES = 0.01
 
 def raster_launches(launched):
     """The raster kernels' launches in a ``counts()`` reading (the batch
-    norm's are counted beside them, under ``batchnorm``)."""
-    return sum(n for name, n in launched.items() if name != "batchnorm")
+    norm's and the GRU's are counted beside them, under ``batchnorm`` and
+    ``gru``)."""
+    return sum(n for name, n in launched.items()
+               if name not in ("batchnorm", "gru"))
 
 
 def phase_bn(dev, card):
@@ -2883,6 +2899,105 @@ def phase_bn(dev, card):
             f"(one call) {r['library_ms']:.4f}; {pl}; {card}")
     torch.cuda.synchronize()
     return dict(timed[0], max_abs_err=err)
+
+
+def phase_gru(dev, card):
+    """The GRU recurrence kernel (``ops/gru.py``, ``csrc/gru.cu``): its
+    build and ptxas's report for sm_90a; ``gru_selftest``'s cases (the
+    kernel within ``KERNEL_ABS`` of the eager loop and of its torch
+    version, the same run to run, zeros past each length, a launch a
+    layer), the state carried over two calls byte-equal to one call, the
+    counters of a served call, a live block, a BFMNet training step and its
+    eval; the kernel's µs a step at T 64, 512 and 2048, units 256 and 128,
+    B 1, beside the eager loop (``library_ms``: the path the kernel
+    replaces) and the whole fused layer; ``predict_expressions`` on the
+    card against the CPU on a 367-frame clip (bucket 512) within 2e-4.
+    Returns the times at T 512, units 256 and the largest |Δ| from the
+    eager loop (``max_abs_err``)."""
+    import numpy as np
+    import torch
+    from voicepuppet_torch import config as tcfg
+    from voicepuppet_torch.face3d import bfm
+    from voicepuppet_torch.ops import gru
+    from voicepuppet_torch.ops import gru_selftest as gst
+    from voicepuppet_torch.pipeline import synthesize as syn
+    t0 = time.perf_counter()
+    gru.LIBRARY.function()
+    log(f"gru build: csrc/gru.cu in {time.perf_counter() - t0:.2f} s")
+    for line in gru.LIBRARY.build_log.splitlines():
+        if ("registers" in line or "spill" in line or "smem" in line
+                or "Compiling entry" in line):
+            log(f"  ptxas: {line.strip()}")
+    err = plain_err = f64_kernel = f64_eager = 0.0
+    for case in gst.CASES:
+        r = gst.check_case(dev, *case)
+        if not (r["eager_abs"] <= gst.KERNEL_ABS
+                and r["plain_abs"] <= gst.KERNEL_ABS
+                and r["kernel_f64"] <= gst.KERNEL_ABS and r["run_to_run"]
+                and r["zero_past"] and r["launches"] == 2):
+            raise AssertionError(f"gru case {case}: {r}")
+        err, plain_err = max(err, r["eager_abs"]), max(plain_err,
+                                                       r["plain_abs"])
+        f64_kernel = max(f64_kernel, r["kernel_f64"])
+        f64_eager = max(f64_eager, r["eager_f64"])
+        log(f"gru case B {case[0]} T {case[1]} units {case[2]} lengths "
+            f"{list(case[4])} state {case[5]}: |Δ| eager "
+            f"{r['eager_abs']:.3g}, plain {r['plain_abs']:.3g}; from "
+            f"float64: kernel {r['kernel_f64']:.3g}, eager "
+            f"{r['eager_f64']:.3g}")
+    log(f"gru cases: {len(gst.CASES)}, max |Δ| from the eager loop {err:.3g}"
+        f", from the torch version {plain_err:.3g} (band {gst.KERNEL_ABS}); "
+        f"from the float64 loop: kernel {f64_kernel:.3g}, eager "
+        f"{f64_eager:.3g}; run to run equal; zeros past each length")
+    if not gst.check_carry(dev):
+        raise AssertionError("gru: two calls with the state carried differ "
+                             "from one call")
+    log("gru carry: two calls with the state carried byte-equal to one")
+    served = gst.served_counts(dev)
+    trained = gst.training_step_counts(dev)
+    for label, c, fused in (("served synthesize", served["batch"], True),
+                            ("live blocks", served["live"], True),
+                            ("BFMNet training step", trained["train"],
+                             False)):
+        total = c["fused"] + c["eager"]
+        share = 100.0 * c["fused"] / total if total else float("nan")
+        log(f"gru counters, {label}: vp.gru.fused {c['fused']}, vp.gru.eager"
+            f" {c['eager']}: {share:.1f}% fused")
+        if (c["eager"] == 0) != fused or (c["fused"] > 0) != fused:
+            raise AssertionError(f"gru counters of the {label}: {c}")
+    log(f"gru counters, BFMNet eval loss: {trained['eval']}")
+    timed = {}
+    for units in (256, 128):
+        for t in (64, 512, 2048):
+            r = gst.time_case(dev, t, units)
+            timed[(t, units)] = r
+            log(f"gru time T {t} units {units} B 1: kernel "
+                f"{r['kernel_ms']:.4f} ms ({r['us_a_step']:.3f} µs a step), "
+                f"fused layer {r['layer_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.3f}, library_ms (the eager loop) "
+                f"{r['eager_ms']:.3f}; {card}")
+    cfg = tcfg.Config()
+    face = bfm.synthetic_bfm(num_theta=16, num_phi=16)
+    trees = syn.SynthesisAssets.init_trees(cfg, SEED)
+    rng = np.random.RandomState(SEED)
+    pcm = (0.1 * rng.randn(366 * cfg.frame_wav_scale)).astype(np.float32)
+    exp = {}
+    for where in (dev, torch.device("cpu")):
+        synth = syn.Synthesizer(cfg, face, *trees, chunk=CHUNK,
+                                gan_dtype=torch.float32, device=where)
+        exp[where.type] = synth.predict_expressions(pcm).cpu().numpy()
+        del synth
+    exp_err = float(np.abs(exp["cuda"] - exp["cpu"]).max())
+    if not exp_err < 2e-4:
+        raise AssertionError(f"gru: 367-frame coefficients card vs CPU max "
+                             f"|diff| {exp_err}")
+    log(f"gru: 367-frame coefficients (bucket 512) card vs CPU max |diff| "
+        f"{exp_err:.3g} (band 2e-4), {exp['cuda'].shape}")
+    torch.cuda.synchronize()
+    # the recurrence's multiply-adds at 67 TFLOP/s float32 (bytes, W_h and
+    # xg read once and the outputs written once, bound it less)
+    bound_ms = 2 * 3 * 256 * 256 * 512 / 67e12 * 1e3
+    return dict(timed[(512, 256)], max_abs_err=err, bound_ms=bound_ms)
 
 
 def phase_bench(cfg, trees, dev, counts, reset_counts, card):
@@ -3033,7 +3148,7 @@ def main():
     from voicepuppet_torch.models import pixrefer as px
     from voicepuppet_torch import ops as tops
     from voicepuppet_torch.ops import KERNELS, render_colors_auto
-    from voicepuppet_torch.ops import batchnorm
+    from voicepuppet_torch.ops import batchnorm, gru
     from voicepuppet_torch.ops import batchnorm_selftest as bst
     from voicepuppet_torch.ops import raster_probes as probes
     from voicepuppet_torch.ops import raster_selftest
@@ -3054,10 +3169,12 @@ def main():
         for k in every_kernel:
             k.launches = 0
         batchnorm.LIBRARY.launches = 0
+        gru.LIBRARY.launches = 0
 
     def counts():
         got = {k.name: k.launches for k in every_kernel}
         got["batchnorm"] = batchnorm.LIBRARY.launches
+        got["gru"] = gru.LIBRARY.launches
         return got
 
     t_start = time.perf_counter()
@@ -3090,6 +3207,11 @@ def main():
     t0 = time.perf_counter()
     bn_run = phase_bn(dev, card)
     log(f"phase 2b (bn kernels) {time.perf_counter() - t0:.1f} s")
+
+    # ---- 2c. the coefficient programs' GRU kernel -----------------------
+    t0 = time.perf_counter()
+    gru_run = phase_gru(dev, card)
+    log(f"phase 2c (gru kernel) {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. the main path at full width ---------------------------------
     cfg = tcfg.Config()
@@ -3180,14 +3302,18 @@ def main():
                              f", BN calls {bn_calls}: every call of G's "
                              f"{bn_modules} BN modules in each of {n_chunks}"
                              " chunks on the kernels")
+    gru_launches = launched["gru"]
+    if gru_launches != cfg.bfmnet.rnn_layers:
+        raise AssertionError(f"main path GRU launches {gru_launches}: one a "
+                             f"layer of the {cfg.bfmnet.rnn_layers}")
     if frames.shape != (FRAMES, s, s, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"frames {frames.dtype} {frames.shape}")
     if not frames.std(axis=0).max() > 0 or frames.max() == 0:
         raise AssertionError("frames are constant")
     log(f"main path: synthesize -> {frames.shape} {frames.dtype}, raster "
         f"launches {launches} for {n_chunks} chunks, batch norm launches "
-        f"{bn_launches} ({bn_modules} a G forward), first call "
-        f"{first_s:.3f} s")
+        f"{bn_launches} ({bn_modules} a G forward), GRU launches "
+        f"{gru_launches}, first call {first_s:.3f} s")
 
     times = []
     for _ in range(5):
@@ -3829,6 +3955,13 @@ def main():
         "ms": bn_run["kernel_ms"], "plain_ms": bn_run["plain_ms"],
         "bound_ms": bn_run["bound_ms"], "bound_by": "bytes",
         "library_ms": bn_run["library_ms"]})
+    kernels.append({
+        "name": "gru", "route": "cuda",
+        "source": "voicepuppet_torch/csrc/gru.cu", "replaces": None,
+        "launches": gru_launches, "max_abs_err": gru_run["max_abs_err"],
+        "ms": gru_run["kernel_ms"], "plain_ms": gru_run["plain_ms"],
+        "bound_ms": gru_run["bound_ms"], "bound_by": "operations",
+        "library_ms": gru_run["eager_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -35,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from voicepuppet_torch.ops import gru as gru_kernel
 from voicepuppet_torch.parallel.mesh import AllReduceSum, spans_ranks
+from voicepuppet_torch.utils import tracing
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -423,7 +425,16 @@ class MaskedGRU(nn.Module):
     t = seq_len-1 (the GRU output is its state), or the initial state for
     an empty row (JAX ``layers.py:305-355``).  With ``train`` each layer's
     masked outputs go through dropout at ``drop_rate``
-    (tf.contrib.rnn.DropoutWrapper(output_keep_prob=1-drop_rate))."""
+    (tf.contrib.rnn.DropoutWrapper(output_keep_prob=1-drop_rate)).
+
+    A CUDA call that is not training and wants no autograd graph (the
+    serving paths' inference mode), in float32 with units a multiple of 32
+    up to 256, runs each layer as one matrix product of the input half of
+    its gates over all steps and ``ops/gru.py``'s kernel for the
+    recurrence, which stops at each row's ``seq_len`` (counted as
+    ``vp.gru.fused``, the steps it ran); every other call runs the step
+    loop below, a CUDA one counted as ``vp.gru.eager`` (B x T steps a
+    layer)."""
 
     def __init__(self, in_dim: int, num_units: int, num_layers: int = 1,
                  drop_rate: float = 0.0):
@@ -439,6 +450,11 @@ class MaskedGRU(nn.Module):
                 return_state: bool = False, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         b, t, _ = inputs.shape
+        if inputs.is_cuda:
+            if self._fused(inputs, seq_len, initial_state, train):
+                return self._fused_forward(inputs, seq_len, initial_state,
+                                           return_state)
+            tracing.count("vp.gru.eager", b * t * self.num_layers)
         x = inputs
         mask = (torch.arange(t, device=x.device)[None, :]
                 < seq_len[:, None])[..., None]
@@ -460,6 +476,53 @@ class MaskedGRU(nn.Module):
             x = out * mask
             if train:
                 x = dropout(x, self.drop_rate, generator)
+        if return_state:
+            return x, finals
+        return x
+
+    def _fused(self, inputs, seq_len, initial_state, train: bool) -> bool:
+        """Whether ``ops/gru.py``'s kernel takes this call: not training,
+        no autograd graph wanted, float32 inputs and parameters on one
+        device, and units, lengths and initial states it takes."""
+        if (train or torch.is_grad_enabled()
+                or inputs.dtype != torch.float32 or 0 in inputs.shape):
+            return False
+        dev, b = inputs.device, inputs.shape[0]
+        states = (initial_state if initial_state is not None
+                  else [None] * self.num_layers)
+        return (all(p.dtype == torch.float32 and p.device == dev
+                    for p in self.parameters())
+                and gru_kernel.units_problem(self.num_units) is None
+                and gru_kernel.lengths_problem(seq_len, dev, b) is None
+                and all(gru_kernel.state_problem(h, dev, b, self.num_units)
+                        is None for h in states))
+
+    def _fused_forward(self, inputs, seq_len, initial_state,
+                       return_state: bool,
+                       recurrence: Optional[Callable] = None):
+        """Each layer: ``xg = x W_x^T + b`` over all steps in one matrix
+        product, then the kernel's recurrence (``Dense_0``'s and
+        ``Dense_1``'s weights stacked: rows r, u, c; columns x, then h).
+        ``recurrence``: the kernel (None), or ``ops/gru.py``'s
+        ``gru_recurrence_plain``, its torch version."""
+        recurrence = recurrence or gru_kernel.gru_recurrence
+        b, t, _ = inputs.shape
+        if tracing.counting():
+            tracing.count("vp.gru.fused", torch.clamp(seq_len, 0, t).sum()
+                          * self.num_layers)
+        x = inputs
+        finals = []
+        for layer in range(self.num_layers):
+            cell = getattr(self, f"ScanTFGRUCell_{layer}")
+            w = torch.cat([cell.Dense_0.weight, cell.Dense_1.weight])
+            bias = torch.cat([cell.Dense_0.bias, cell.Dense_1.bias])
+            d = x.shape[-1]
+            xg = torch.addmm(bias, x.reshape(b * t, d), w[:, :d].t())
+            x, h = recurrence(
+                xg.view(b, t, -1), w[:, d:],
+                None if initial_state is None else initial_state[layer],
+                seq_len)
+            finals.append(h)
         if return_state:
             return x, finals
         return x

@@ -5,7 +5,8 @@
 ``vp.render.drain_wait``, ``vp.drain.fetch_wait``, ``vp.drain.unpack``,
 ``vp.stream.coeff``, ``vp.stream.block``, ``vp.train.d_half``,
 ``vp.train.g_half``); ``count(name, n)`` adds to a counter
-(``vp.frames.served``, ``vp.frames.padded``).
+(``vp.frames.served``, ``vp.frames.padded``, ``vp.bn.fused``,
+``vp.bn.eager``, ``vp.gru.fused``, ``vp.gru.eager``).
 What a span does depends on what is open:
 
 * nothing: one flag test, nothing allocated;
@@ -87,12 +88,24 @@ def current():
     return stack[-1] if stack else None
 
 
-def count(name: str, n: int = 1):
-    """Add ``n`` to the counter ``name`` of the open recording."""
+def count(name: str, n=1):
+    """Add ``n`` to the counter ``name`` of the open recording.  ``n`` may
+    be an integer tensor of one element on any device: it is kept as it is
+    and read when the counts are, so counting never waits for the
+    device."""
     rec = _active
     if rec is not None:
         with rec.lock:
-            rec.counts[name] = rec.counts.get(name, 0) + int(n)
+            if isinstance(n, torch.Tensor):
+                rec.pending.append((name, n))
+            else:
+                rec.kept[name] = rec.kept.get(name, 0) + int(n)
+
+
+def counting() -> bool:
+    """Whether a recording is open, so that a count would be kept (for a
+    count that costs work to form)."""
+    return _active is not None
 
 
 def cuda_event(device=None) -> "torch.cuda.Event":
@@ -183,7 +196,8 @@ class Recording:
     def __init__(self):
         self.lock = threading.Lock()
         self.spans: List[_Span] = []
-        self.counts: Dict[str, int] = {}
+        self.kept: Dict[str, int] = {}
+        self.pending: List[tuple] = []      # (name, tensor) not yet read
         self.start_ns = self.end_ns = None
         self._summary = None
 
@@ -201,12 +215,21 @@ class Recording:
         self.end_ns = time.perf_counter_ns()
         return False
 
+    @property
+    def counts(self) -> Dict[str, int]:
+        """The counters, the counts held on a device read in."""
+        with self.lock:
+            for name, n in self.pending:
+                self.kept[name] = self.kept.get(name, 0) + int(n)
+            self.pending.clear()
+            return self.kept
+
     def summary(self) -> dict:
         if self._summary is None:
+            counts = dict(self.counts)
             with self.lock:
                 spans = [s.record() for s in self.spans
                          if s.end_ns is not None]
-                counts = dict(self.counts)
             self._summary = {"spans": spans, "counts": counts,
                              "start_ns": self.start_ns,
                              "end_ns": self.end_ns}
