@@ -57,6 +57,7 @@ from voicepuppet_torch.train.loop import StepLoop, flax_gradients
 from voicepuppet_torch.train.optim import gan_optimizer
 from voicepuppet_torch.train.pixrefer_trainer import DTYPES, _mark
 from voicepuppet_torch.train.state import GANTrainState
+from voicepuppet_torch.utils import tracing
 
 
 class PixFlowTrainer(StepLoop):
@@ -106,8 +107,12 @@ class PixFlowTrainer(StepLoop):
         """One D update then one G update on ``batch``, this rank's rows
         of the global batch (``parallel.mesh.shard_batch``); returns
         (state, metrics of device scalars, averaged over the ranks).
-        ``generator`` draws the dropout masks; ``marks``, a list (on the
-        card), receives CUDA events at the start, after D and after G."""
+        ``generator`` draws the dropout masks (six a G forward, in
+        ``ResBlock`` order, for D's constant then for G's loss); ``marks``,
+        a list (on the card), receives CUDA events at the start, after D
+        and after G.  Spans: ``vp.train.d_half`` (holding
+        ``vp.train.g_const``, the no-grad G forward) and
+        ``vp.train.g_half``."""
         with sync_bn(group_of(self.mesh), state.gen, state.disc):
             return self._step(state, batch, generator, marks)
 
@@ -116,30 +121,36 @@ class PixFlowTrainer(StepLoop):
         group = group_of(self.mesh)
         inputs, fg_inputs, masks = batch_to_device(batch, self.device)
         _mark(marks)
-        inputs_p = px.preprocess(inputs)
-        fg_p = px.preprocess(fg_inputs)
-        gen, disc = state.gen, state.disc
-        with torch.no_grad():
-            out0, _ = gen(inputs_p, fg_p, train=True, generator=generator)
-        d_loss = pf.pixflow_discriminator_loss(
-            disc(inputs_p[..., 3:], fg_p[..., 3:]),
-            disc(inputs_p[..., 3:], out0))
-        state.d_optimizer.zero_grad(set_to_none=True)
-        d_loss.backward(inputs=list(disc.parameters()))
-        all_reduce_grads_(disc.parameters(), group)
-        state.d_optimizer.step()
+        with tracing.span("vp.train.d_half", request=state.step,
+                          device=self.device):
+            inputs_p = px.preprocess(inputs)
+            fg_p = px.preprocess(fg_inputs)
+            gen, disc = state.gen, state.disc
+            with tracing.span("vp.train.g_const", request=state.step,
+                              device=self.device), torch.no_grad():
+                out0, _ = gen(inputs_p, fg_p, train=True,
+                              generator=generator)
+            d_loss = pf.pixflow_discriminator_loss(
+                disc(inputs_p[..., 3:], fg_p[..., 3:]),
+                disc(inputs_p[..., 3:], out0))
+            state.d_optimizer.zero_grad(set_to_none=True)
+            d_loss.backward(inputs=list(disc.parameters()))
+            all_reduce_grads_(disc.parameters(), group)
+            state.d_optimizer.step()
         _mark(marks)
 
         # G through the updated D (reference ordering), its own dropout
-        outputs, alphas = gen(inputs_p, fg_p, train=True,
-                              generator=generator)
-        g_loss, gan_t, l1_t = pf.pixflow_generator_loss(
-            disc(inputs_p[..., 3:], outputs), fg_p[..., 3:], outputs,
-            alphas, masks, cfg.gan_weight, cfg.l1_weight)
-        state.g_optimizer.zero_grad(set_to_none=True)
-        g_loss.backward(inputs=list(gen.parameters()))
-        all_reduce_grads_(gen.parameters(), group)
-        state.g_optimizer.step()
+        with tracing.span("vp.train.g_half", request=state.step,
+                          device=self.device):
+            outputs, alphas = gen(inputs_p, fg_p, train=True,
+                                  generator=generator)
+            g_loss, gan_t, l1_t = pf.pixflow_generator_loss(
+                disc(inputs_p[..., 3:], outputs), fg_p[..., 3:], outputs,
+                alphas, masks, cfg.gan_weight, cfg.l1_weight)
+            state.g_optimizer.zero_grad(set_to_none=True)
+            g_loss.backward(inputs=list(gen.parameters()))
+            all_reduce_grads_(gen.parameters(), group)
+            state.g_optimizer.step()
         _mark(marks)
         state.step += self.step_stride
         metrics = {"discrim_loss": d_loss, "gen_loss": g_loss,

@@ -4,8 +4,8 @@
 ``vp.*`` names: ``vp.synthesize``, ``vp.coeff``, ``vp.render.chunk``,
 ``vp.render.drain_wait``, ``vp.drain.fetch_wait``, ``vp.drain.unpack``,
 ``vp.stream.coeff``, ``vp.stream.block``, ``vp.train.d_half``,
-``vp.train.g_half``); ``count(name, n)`` adds to a counter
-(``vp.frames.served``, ``vp.frames.padded``, ``vp.bn.fused``,
+``vp.train.g_const``, ``vp.train.g_half``); ``count(name, n)`` adds to a
+counter (``vp.frames.served``, ``vp.frames.padded``, ``vp.bn.fused``,
 ``vp.bn.eager``, ``vp.gru.fused``, ``vp.gru.eager``).
 What a span does depends on what is open:
 
