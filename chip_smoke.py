@@ -27,9 +27,14 @@ Needs one CUDA card and ``nvcc`` (found on PATH, under $CUDA_HOME or
                         normalize of those moments); whole generators no
                         further from float32 than eager, with eager
                         reordered and the library's one-call batch norm
-                        beside them; the vp.bn.* counters of a forward and
-                        a training step; kernel, plain, eager and library
-                        ms and the bound on the largest shapes.  Alone:
+                        beside them; the vp.bn.* counters of a forward;
+                        kernel, plain, eager and library ms and the bound
+                        on the largest shapes.  The training batch norm
+                        (phase_bn_train): every training BN shape of both
+                        trainers, NCHW and channels_last, bit-equal to
+                        bn_train_plain and within 2e-6 of float64; each
+                        trainer's step at least 95% fused, and against
+                        eager; forward and backward ms.  Alone:
                         python3 -c "import torch, chip_smoke as c;
                         c.phase_bn(torch.device('cuda', 0), c.card_line())".
   2c. gru kernel        build csrc/gru.cu (the coefficient programs' GRU
@@ -2839,9 +2844,10 @@ def phase_bn(dev, card):
     moments within 1e-5 of float64 and bit-equal to ``moments_plain``, the
     output byte-equal to the plain version and to eager ``normalize`` of
     its own moments; the whole generators no further from float32 than
-    eager, the counters of a forward and of a training step; the kernels'
-    ms against the bound, the plain version's, eager's and the library's
-    one call (``library_ms``) on the prediction's shapes.  Returns the
+    eager, the counters of a forward; the training batch norm
+    (:func:`phase_bn_train`); the kernels' ms against the bound, the plain
+    version's, eager's and the library's one call (``library_ms``) on the
+    prediction's shapes.  Returns the
     times of the largest (PixFlow's decoder_2) and the largest |Δ| from
     the plain version over every case (``max_abs_err``)."""
     import torch
@@ -2881,9 +2887,7 @@ def phase_bn(dev, card):
             f"{r['library_g_ms']:.3f} ms with the library's batch norm; "
             f"vp.bn.fused {r['fused']} of {r['bn_elements']} BN elements, "
             f"vp.bn.eager {r['eager']}; {card}")
-    r = bst.training_step_counts(dev)
-    log(f"bn training step: vp.bn.fused {r['fused']}, vp.bn.eager "
-        f"{r['eager']}")
+    phase_bn_train(dev, card)
     timed = []
     for label, shape, per_frame in (
             ("pixflow decoder_2", (32, 128, 256, 256), True),
@@ -2899,6 +2903,103 @@ def phase_bn(dev, card):
             f"(one call) {r['library_ms']:.4f}; {pl}; {card}")
     torch.cuda.synchronize()
     return dict(timed[0], max_abs_err=err)
+
+
+def phase_bn_train(dev, card):
+    """The training batch norm (``ops/batchnorm.py`` ``TrainBatchNorm``,
+    ``ops/batchnorm_train_selftest.py``): every training BN shape of both
+    trainers in both layouts, the passes bit-equal to ``bn_train_plain``
+    and within ``TRAIN_REL`` of float64 eager autograd (every dy form on
+    the shapes of 96 and 512 channels); each trainer's step: its BN
+    elements by layout and the ``vp.bn.*`` share (at least 95% fused), one
+    step with the kernels against one on the eager formula (losses,
+    gradient norms, the worst leaves); the library's launch count of each
+    step; the passes' forward and backward ms on every shape and layout
+    the steps run, beside the bytes bound, the plain version's, eager's
+    and the library's (``F.batch_norm`` in training mode, a yardstick
+    only), and those summed over each step's calls."""
+    import torch
+    from voicepuppet_torch.ops import batchnorm_train_selftest as ts
+    worst, cases = {}, 0
+    for label, shape in ts.training_shapes():
+        for layout in ("nchw", "channels_last"):
+            forms = ts.DY_FORMS if shape[1] in (96, 512) else ("same",)
+            for form in forms:
+                gaps = ts.check_train_shape(shape, layout, dev, form)
+                cases += 1
+                for k, v in gaps.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+    log(f"bn train shapes: {cases} cases (every training BN shape of both "
+        f"trainers, NCHW and channels_last, dy in x's layout, a cat's "
+        f"slice and the other layout): y, moments, dx, dw, db bit-equal to "
+        f"bn_train_plain and run to run; worst gap from float64 eager "
+        f"autograd {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} "
+        f"(band {ts.TRAIN_REL})")
+    calls = {}
+    for which in ts.TRAINERS:
+        r = ts.training_bn_split(which, dev)
+        calls[which] = r["calls"]
+        share = r["fused"] / max(1, r["fused"] + r["eager"])
+        split = "; ".join(f"{g} x {lx} dy {ld}: {n}" for (g, lx, ld), n
+                          in sorted(r["split"].items()))
+        on_path = "; ".join(f"{g} {lx} {list(sh)} x{n}" for (g, lx, sh), n
+                            in sorted(r["calls"].items()))
+        log(f"bn train {which} step: vp.bn.fused {r['fused']}, vp.bn.eager "
+            f"{r['eager']} ({100 * share:.1f}% fused); norm.cu wrapper calls "
+            f"(LIBRARY.launches, three kernel launches each) "
+            f"{r['launches']}; by layout: {split}; calls: {on_path}")
+        if share < 0.95:
+            raise AssertionError(f"bn train {which}: {share:.3f} fused")
+        s = ts.step_against_eager(which, dev)
+        k, e, leaf = s["kernels"], s["eager"], s["worst_leaf"]
+        sums = {f"{m} {side}": sum(v for n, v in r["grads"].items()
+                                   if n[0] == m)
+                for m in "GD" for side, r in (("kernels", k), ("eager", e))}
+        worst = "; ".join(
+            f"{n} gap {s['leaf_gaps'][n]:.3e} |grad| {k['grads'][n]:.6g} / "
+            f"{e['grads'][n]:.6g}" for n in s["worst_leaves"])
+        log(f"bn train {which} step, kernels against eager: losses "
+            f"{k['losses']} / {e['losses']}; loss_gap {s['loss_gap']:.3e}, "
+            f"grad_gap {s['grad_gap']:.3e} (worst leaf {leaf}: |grad| "
+            f"{k['grads'][leaf]:.6g} / {e['grads'][leaf]:.6g}); the four "
+            f"worst leaves (median leaf |grad| {s['median']:.6g}): {worst}; "
+            f"|grad| summed over leaves {sums}")
+        if not (s["loss_gap"] < ts.STEP_LOSS and s["grad_gap"] < ts.STEP_GRAD):
+            raise AssertionError(f"bn train {which}: kernels off eager {s}")
+    # every (shape, layout) a step runs, timed once; a step's BN ms summed
+    # over its calls (forward and backward with grad, forward without; dy
+    # in x's layout)
+    times = {}
+    for which in ts.TRAINERS:
+        for (_, layout, shape) in calls[which]:
+            if (shape, layout) in times:
+                continue
+            r = times[(shape, layout)] = ts.time_train_shape(shape, layout,
+                                                             dev)
+            log(f"bn train time {list(shape)} {layout}: forward "
+                f"{r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f}, "
+                f"{r['fwd_ratio']:.3f}x), backward {r['bwd_ms']:.4f} ms "
+                f"(bound {r['bwd_bound_ms']:.4f}, {r['bwd_ratio']:.3f}x); "
+                f"plain {r['plain_fwd_ms']:.4f} / {r['plain_bwd_ms']:.4f}; "
+                f"eager {r['eager_fwd_ms']:.4f} / {r['eager_bwd_ms']:.4f}; "
+                f"library_ms (F.batch_norm) {r['library_fwd_ms']:.4f} / "
+                f"{r['library_bwd_ms']:.4f}; {card}")
+    for which in ts.TRAINERS:
+        total = {"kernels": 0.0, "library": 0.0, "eager": 0.0, "bound": 0.0}
+        for (mode, layout, shape), n in calls[which].items():
+            r = times[(shape, layout)]
+            grad = mode == "grad"
+            for side, f, b in (("kernels", "fwd_ms", "bwd_ms"),
+                               ("library", "library_fwd_ms",
+                                "library_bwd_ms"),
+                               ("eager", "eager_fwd_ms", "eager_bwd_ms"),
+                               ("bound", "fwd_bound_ms", "bwd_bound_ms")):
+                total[side] += n * (r[f] + (r[b] if grad else 0.0))
+        log(f"bn train {which} step, BN ms summed over its calls (each "
+            f"timed alone): " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in total.items())
+            + f"; {card}")
+    torch.cuda.synchronize()
 
 
 def phase_gru(dev, card):

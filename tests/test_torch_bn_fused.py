@@ -17,9 +17,10 @@ loaded with ``ast``, flax's parameter lookup stood in for), so that it
 runs where flax is not installed, always on JAX's CPU backend.
 
 Card (marked ``card``; skipped without CUDA): ``ops/batchnorm_selftest.py``
-on every BN shape of both served generators, the whole generators and
-the counters of a training step, and the kernels' output on every served
-shape against the JAX module on the host.  On the card: ``python -m
+on every BN shape of both served generators, the whole generators, and
+the kernels' output on every served shape against the JAX module on the
+host.  A training step's batch norm and its counters are
+``tests/test_torch_bn_train.py``'s.  On the card: ``python -m
 pytest tests/test_torch_bn_fused.py -m card -q`` (``tests/conftest.py``
 puts JAX on its CPU backend).
 """
@@ -312,12 +313,10 @@ def test_served_elements_per_frame():
     assert sum(torch.Size(s).numel() for s in flow) == 22_544_384
 
 
-def _jax_bn():
+def _jax_bn_call():
     """The JAX package's ``StatelessBatchNorm.__call__`` from its source,
-    under ``jax.jit`` on JAX's CPU backend: ``f(x, scale, bias,
-    per_frame)`` on an NHWC array, per frame by ``vmap`` over frames of
-    one (the moments of a batch of one, as the JAX PixFlowNet takes
-    them).  The class's fields are its own defaults; ``self.param``
+    as ``f(x, scale, bias)`` on an NHWC array (not jitted), on JAX's CPU
+    backend.  The class's fields are its own defaults; ``self.param``
     returns the given scale and bias."""
     import jax
     import jax.numpy as jnp
@@ -342,6 +341,16 @@ def _jax_bn():
                              **fields)
         return ns["__call__"](me, x)
 
+    return run
+
+
+def _jax_bn():
+    """``_jax_bn_call`` under ``jax.jit``: ``f(x, scale, bias,
+    per_frame)`` on an NHWC array, per frame by ``vmap`` over frames of
+    one (the moments of a batch of one, as the JAX PixFlowNet takes
+    them)."""
+    import jax
+    run = _jax_bn_call()
     chunk = jax.jit(run)
     frames = jax.jit(jax.vmap(lambda x, s, b: run(x[None], s, b)[0],
                               in_axes=(0, None, None)))
@@ -441,11 +450,6 @@ def test_card_served_shapes(card):
 @pytest.mark.card
 def test_card_generators(card):
     selftest.check_generators(card)
-
-
-@pytest.mark.card
-def test_card_training_step_takes_eager(card):
-    selftest.training_step_counts(card)
 
 
 @pytest.mark.card

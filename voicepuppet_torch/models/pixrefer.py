@@ -54,8 +54,11 @@ class StatelessBatchNorm(SyncBN):
 
     On a CUDA tensor with no autograd graph wanted (the serving paths'
     inference mode) the moments and the normalisation run as
-    ``ops/batchnorm.py``'s kernels (x read twice, y written once),
-    counted as ``vp.bn.fused``; every other call runs the eager formula
+    ``ops/batchnorm.py``'s kernels (x read twice, y written once); a
+    float32 CUDA call with batch moments in a layout the training kernels
+    take (a training step's, grad enabled or not) runs as
+    ``batchnorm.TrainBatchNorm``, forward and backward hand-written; both
+    counted as ``vp.bn.fused``.  Every other call runs the eager formula
     below, a CUDA one counted as ``vp.bn.eager``."""
 
     moment_dims = (0, 2, 3)
@@ -73,6 +76,10 @@ class StatelessBatchNorm(SyncBN):
                 return batchnorm.stateless_bn(
                     x, self.weight, self.bias, self.epsilon,
                     tuple(self.moment_dims) == (2, 3))
+            if self._trains(x):
+                tracing.count("vp.bn.fused", x.numel())
+                return batchnorm.train_bn(x, self.weight, self.bias,
+                                          self.epsilon)
             tracing.count("vp.bn.eager", x.numel())
         xf = x.float()
         mean = xf.mean(dim=self.moment_dims, keepdim=True)
@@ -92,6 +99,17 @@ class StatelessBatchNorm(SyncBN):
         return (not torch.is_grad_enabled() and not spans_ranks(self.group)
                 and tuple(self.moment_dims) in ((0, 2, 3), (2, 3))
                 and batchnorm.unsupported(x, self.weight, self.bias) is None)
+
+    def _trains(self, x) -> bool:
+        """Whether ``batchnorm.TrainBatchNorm`` takes this call: batch
+        moments of this process alone and an input its kernels take (a
+        float32 contiguous NCHW or channels_last CUDA tensor), while
+        ``batchnorm.TRAINING_PASSES`` holds."""
+        return (batchnorm.TRAINING_PASSES
+                and tuple(self.moment_dims) == (0, 2, 3)
+                and not spans_ranks(self.group)
+                and batchnorm.train_unsupported(x, self.weight,
+                                                self.bias) is None)
 
     def normalize(self, xf, mean, mean2):
         """float32 ``xf`` normalized with given moments ([1,C,1,1] mean

@@ -12,7 +12,6 @@ marked ``card``) and ``chip_smoke.py`` (``phase_bn``):
   512², ngf 64, B 32, bf16 convs: the kernels' output no further from the
   float32 G than eager's, and the counters of one forward; the library's
   one-call batch norm (``library_bn``) measured beside them;
-* ``training_step_counts``: the counters of one PixRefer training step;
 * ``time_shape``: the kernels', the plain version's, eager's and the
   library's milliseconds of one shape, and the bandwidth bound.
 
@@ -136,7 +135,7 @@ def check_shape(shape, dtype, per_frame: bool, device, seed: int = 0
         plain = eager.normalize(x.float(), pm, pm2).to(dtype)
         want = eager.normalize(x.float(), mean, mean2).to(dtype)
         again = bn.stateless_bn(x, w, b, EPS, per_frame)
-    with torch.enable_grad():
+    with torch.enable_grad(), eager_only():
         own = eager(x)
     err = float((y.float() - plain.float()).abs().max())
     what = f"{tuple(shape)} {dtype} per_frame={per_frame}"
@@ -173,6 +172,18 @@ def _frozen(module: torch.nn.Module, dtype) -> torch.nn.Module:
             m.to(dtype)
     module.dtype = dtype
     return module
+
+
+@contextlib.contextmanager
+def eager_only():
+    """Every batch norm of a training step on the eager formula: the
+    dispatch to ``batchnorm.TrainBatchNorm`` turned off (the served
+    kernels' no-grad dispatch stays), by ``bn.TRAINING_PASSES``."""
+    before, bn.TRAINING_PASSES = bn.TRAINING_PASSES, False
+    try:
+        yield
+    finally:
+        bn.TRAINING_PASSES = before
 
 
 @contextlib.contextmanager
@@ -237,7 +248,8 @@ def _gen_distances(run_g, g) -> dict:
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            full = run_g(g32)
+            with eager_only():
+                full = run_g(g32)
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
 
@@ -287,29 +299,6 @@ def check_generators(device, batch: int = 32, seed: int = 0) -> dict:
     return out
 
 
-def training_step_counts(device) -> dict:
-    """The counters of one PixRefer training step at the served config's
-    widths, batch 2: every BN on the eager path (grad on)."""
-    import numpy as np
-
-    from voicepuppet_torch.config import Config
-    from voicepuppet_torch.train.pixrefer_trainer import PixReferTrainer
-    cfg = Config()
-    tr = PixReferTrainer(cfg, device=device)
-    state = tr.init_state()
-    s = cfg.pixrefer.img_size
-    rng = np.random.RandomState(0)
-    batch = tuple(rng.rand(2, s, s, c).astype(np.float32)
-                  for c in (6, 6, 3, 3))
-    with tracing.recording() as rec:
-        tr.train_step(state, batch)
-        torch.cuda.synchronize(device)
-    counts = {"fused": rec.counts.get("vp.bn.fused", 0),
-              "eager": rec.counts.get("vp.bn.eager", 0)}
-    assert counts["fused"] == 0 and counts["eager"] > 0, counts
-    return counts
-
-
 def _held_ms(fn, iters: int) -> float:
     """Mean device ms of ``fn`` over ``iters`` calls queued behind a spin
     that holds the stream, so the host's enqueue is not what is timed."""
@@ -347,7 +336,7 @@ def time_shape(shape, dtype, per_frame: bool, device, iters: int = 20
         plain_ms = _held_ms(plain, max(iters // 4, 2))
         library = _held_ms(lambda: library_bn(x, w, b, EPS, per_frame),
                            iters)
-    with torch.enable_grad():
+    with torch.enable_grad(), eager_only():
         eager = _held_ms(lambda: m(x), iters)
     bound = 3 * x.numel() * x.element_size() / H100_BYTES_PER_S * 1e3
     return {"kernel_ms": kernel, "bound_ms": bound,
